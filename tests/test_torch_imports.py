@@ -1,0 +1,108 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX package,
+and without a card its entry points refuse to run instead of falling back
+to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+BANNED = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for f in files:
+        for mod in _imports(f):
+            if mod.split(".")[0] in BANNED:
+                bad.append(f"{f.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_port_runs_loader_and_train_step_without_loading_jax(tmp_path):
+    script = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        from repro_torch.configs import get_config, reduced, RunConfig
+        from repro_torch.core import Cluster, EpochSampler, RedoxLoader
+        from repro_torch.core.device import DeviceStager
+        from repro_torch.data import SyntheticTokenDataset
+        from repro_torch.models import build_model
+        from repro_torch.optim.optimizers import make_optimizer
+        from repro_torch.train.train_step import build_train_step, init_train_state
+
+        cfg = reduced(get_config("tinyllama-1.1b"))
+        ds = SyntheticTokenDataset(64, vocab_size=cfg.vocab_size, mean_len=24, seed=3)
+        store = ds.build_store({str(tmp_path / "chunks")!r}, 4, num_slots=16, seed=1)
+        loader = RedoxLoader(Cluster(store.plan, 1, store=store, seed=2),
+                             EpochSampler(64, 1, seed=4), batch_per_node=4, seq_len=16)
+        stager = DeviceStager(device="cpu")
+        batches = list(loader.epoch_device(0, stager))
+        assert batches and stager.stats.kernel_steps == len(batches)
+        model = build_model(cfg, device="cpu")
+        run = RunConfig()
+        opt = make_optimizer(run)
+        state = init_train_state(model, opt, 0)
+        feed = {{k: batches[0][k] for k in ("tokens", "targets", "loss_mask")}}
+        state, metrics = build_train_step(model, run, opt)(state, feed)
+        assert np.isfinite(float(metrics["loss"]))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+        assert not leaked, leaked
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=_env(), timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.core.device import DeviceStager
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.models import build_model
+    from repro_torch.configs import get_config, reduced
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceStager()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(reduced(get_config("tinyllama-1.1b")))
+    assert resolve_device("cpu") == torch.device("cpu")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+         "--steps", "1"],
+        capture_output=True, text=True, env=_env(), timeout=240, cwd=ROOT,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr
