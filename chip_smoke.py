@@ -6,31 +6,47 @@
 Phases, each of which fails the run (exit 1, no result lines) if it fails:
 
 1. environment: the card's name and power limit (nvidia-smi), versions;
-2. build: the CUDA kernel from the sources in this checkout;
+2. build: the three CUDA kernel packages (chunk_gather, flash_attention,
+   decode_attention) from the sources in this checkout, one nvcc each,
+   all started together;
 3. kernel parity: every kernel against its plain PyTorch version on the
-   card, over the port's parity shapes plus the shapes the trainer gives
-   it; exact for the integer gather. Times the kernel and the plain
-   version on the device (a CUDA graph of 50 calls, CUDA events) and on
-   the host (per call), and computes the bound from the inputs;
-4. main path: ``repro_torch.launch.train`` at tinyllama-1.1b full width
-   (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16), B=8, S=2048,
-   ``--device-path gather --remat dots`` for 6 steps. Checks that the
-   kernel ran once per staged batch, every loss is finite, the first loss
-   is near ln(vocab), and the staged batches equal a second loader's host
-   stream on the same spec; then profiles a 4-step run of the same path
-   for the device's idle share and its heaviest kernels (and fails if the
-   trace holds no device events or no gather kernel);
-5. small-input reference: reduced tinyllama in f32 on the card against the
-   same weights on the CPU (logits and one train step), TF32 off.
+   card, over the port's parity grid, a few edge cases and the shapes the
+   main paths give it: exact for the integer gather, the registry's
+   scale-normalised tolerance for the attention kernels (f32 2e-5, bf16
+   2e-2). Times each kernel, its plain version and, where one exists, the
+   PyTorch library call computing the same function on the device (a CUDA
+   graph of many calls, CUDA events), and computes its bound from the
+   inputs;
+4. training main path: ``repro_torch.launch.train`` at tinyllama-1.1b
+   full width (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16),
+   B=8, S=2048, ``--device-path gather --remat dots`` for 6 steps. Checks
+   that the gather kernel ran once per staged batch, every loss is finite,
+   the first loss is near ln(vocab), and the staged batches equal a second
+   loader's host stream; then profiles a 4-step run for the device's idle
+   share and its heaviest kernels (fails if the trace holds no device
+   events or no gather kernel);
+5. serving main path: ``repro_torch.launch.serve`` at tinyllama-1.1b full
+   width, B=8, a 1920-token prompt, 128 new tokens. Checks 22 flash and
+   22 x 127 decode launches, tokens in range, finite logits, and decode
+   against a fresh prefill at four positions (scale-normalised error <=
+   5e-2 and argmax agreeing on 7 of 8 rows); then profiles 16 decode steps
+   for the device's idle share and its heaviest kernels (fails if the
+   trace holds no device events or no decode kernel);
+6. small-input reference: reduced tinyllama in f32 on the card against the
+   same weights on the CPU, TF32 off: logits and one train step, and
+   prefill + greedy decode with a full, a rotating-window and an int8
+   cache.
 
-The last four lines are the main path's numbers as JSON, the card's name
-and power limit, the kernel table as JSON, and ``{"ok": true, "device":
-{...}}``. Exits non-zero without a card, and in a directory without the
-port's sources.
+The last five lines are the training path's numbers as JSON, the serving
+path's, the card's name and power limit, the kernel table as JSON, and
+``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in a
+directory without the port's sources.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import math
 import statistics
@@ -43,12 +59,30 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 
-#: H100 SXM device memory rate (NVIDIA data sheet), bytes/s.
+#: H100 SXM device memory rate and dense bf16 tensor-core rate (NVIDIA
+#: data sheet), bytes/s and FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+KERNEL_PACKAGES = ("chunk_gather", "flash_attention", "decode_attention")
 MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
              "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
              "--steps", "6"]
+SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--batch", "8", "--prompt-len", "1920",
+              "--new-tokens", "128", "--seed", "0"]
 SMALL_TOL = 1e-4  # f32 on the card vs the CPU: summation order only
+#: int8 caches on the card vs the CPU: K/V that agree to f32 summation
+#: order can still round to neighbouring codes at a .5 boundary, and one
+#: such code moved reduced-model logits by 2.8e-4 of their max
+#: (tests/test_torch_serve.py); the greedy tokens must still be equal.
+SMALL_INT8_TOL = 1e-3
+#: Decode against a fresh prefill at full width in bf16: the two paths
+#: round at different places (GEMMs of other shapes, the kernels' p cast).
+#: Reduced widths at the full depth reached 8.2e-3 on the CPU
+#: (tests/test_torch_serve.py::test_decode_matches_fresh_prefill); a wrong
+#: cache slot or mask gives errors of order 1.
+AGREEMENT_TOL = 5e-2
+AGREEMENT_MIN_ROWS = 7
+AGREEMENT_STEPS = (0, 42, 84, 126)
 
 
 def fail(msg: str) -> None:
@@ -87,6 +121,8 @@ def graph_ms(fn, *, calls: int = 50, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
     return statistics.median(samples)
 
 
@@ -108,6 +144,19 @@ def host_ms(fn, *, calls: int = 50, reps: int = 20) -> float:
     return statistics.median(samples)
 
 
+def turns(kernel, plain, library=None, **kw) -> dict:
+    """Device time per call in turns (plain, kernel, kernel, plain, and the
+    library call last), so drift hits both versions alike."""
+    p1 = graph_ms(plain, **kw)
+    k1, k2 = graph_ms(kernel, **kw), graph_ms(kernel, **kw)
+    p2 = graph_ms(plain, **kw)
+    out = {"ms": statistics.median([k1, k2]), "plain_ms": statistics.median([p1, p2]),
+           "runs_ms": [k1, k2], "plain_runs_ms": [p1, p2], "library_ms": None}
+    if library is not None:
+        out["library_ms"] = graph_ms(library, **kw)
+    return out
+
+
 def gather_bytes(slots, lens, idx, seq_len: int) -> tuple[int, int]:
     """Bytes ``chunk_gather_train`` must move on these inputs, and the
     number of distinct slot rows: ``idx`` read once, ``lens`` and the first
@@ -121,14 +170,240 @@ def gather_bytes(slots, lens, idx, seq_len: int) -> tuple[int, int]:
     return b * 4 + rows.numel() * 4 + row_tokens * 4 + b * seq_len * 12, rows.numel()
 
 
+def bound(flops: float, moved: int) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bf16
+    operations over the tensor-core rate and the bytes over the memory
+    rate, and which of the two it is."""
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    chunk_gather_train.launches = 0
+    flash_attention.launches = 0
+    decode_attention.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return {"chunk_gather_train": chunk_gather_train.launches,
+            "flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches}
+
+
+# --------------------------------------------------------------- phase 3
+def check_chunk_gather(device) -> dict:
+    """chunk_gather_train against its plain version (exact); timed at the
+    trainer's shapes (row_pad 8, as the stager packs)."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
+    from repro_torch.kernels.chunk_gather.ref import chunk_gather_train_ref
+
+    seq_len, batch = 2048, 8
+    trainer_case = parity.KernelCase("chunk_gather_train", (batch, seq_len, batch), "int32")
+    cases = [(c, 128) for c in parity.iter_cases("chunk_gather_train")] + [(trainer_case, 8)]
+    for case, row_pad in cases:
+        inputs = parity.make_inputs(case, device=device, row_pad=row_pad)
+        got = parity.run_kernel(case, inputs)
+        want = parity.run_ref(case, inputs)
+        torch.cuda.synchronize()
+        abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{case.name}: kernel disagrees with its plain version "
+                 f"(max abs err {abs_err}, tolerance 0)")
+        print(f"{case.name} row_pad {row_pad}: equal (max abs err {abs_err})")
+    slot, lens, idx = parity.make_inputs(trainer_case, device=device, row_pad=8)
+
+    def kernel():
+        return chunk_gather_train(slot, lens, idx, seq_len=seq_len)
+
+    def plain():
+        return chunk_gather_train_ref(slot, lens, idx, seq_len=seq_len)
+
+    t = turns(kernel, plain)
+    k_host, p_host = host_ms(kernel), host_ms(plain)
+    moved, rows = gather_bytes(slot, lens, idx, seq_len)
+    bound_ms, bound_by = bound(0, moved)
+    abs_err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(kernel(), plain()))
+    print(f"chunk_gather_train at B={batch} S={seq_len} Lp={slot.shape[1]}: device time "
+          f"per call (CUDA graph of 50 calls, CUDA events): kernel "
+          f"{t['runs_ms'][0] * 1e3:.3f} / {t['runs_ms'][1] * 1e3:.3f} us, plain "
+          f"{t['plain_runs_ms'][0] * 1e3:.3f} / {t['plain_runs_ms'][1] * 1e3:.3f} us; host "
+          f"time per call: kernel {k_host * 1e3:.2f} us, plain {p_host * 1e3:.2f} us; bound "
+          f"{bound_ms * 1e3:.4f} us ({moved} bytes, {rows} distinct slot rows, at 3.35 TB/s)")
+    spec = parity.KERNELS["chunk_gather_train"]
+    return {
+        "name": "chunk_gather_train", "route": "cuda", "source": spec["source"],
+        "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "host_ms": k_host, "plain_host_ms": p_host,
+    }
+
+
+def check_attention_grid(device) -> None:
+    """Both attention kernels against their plain versions over the parity
+    grid and a few edge cases: fully masked decode rows, lengths that are
+    not a multiple of the tiles, G = 1, windows whose first kv tile is
+    fully masked."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    extra = [parity.KernelCase("decode_attention", shape, dtype)
+             for shape in ((2, 8, 2, 40, 64), (2, 4, 4, 96, 32), (3, 32, 4, 72, 64))
+             for dtype in ("float32", "bfloat16")]
+    for case in parity.iter_cases("flash_attention") + parity.iter_cases("decode_attention") \
+            + extra:
+        inputs = parity.make_inputs(case, device=device)
+        if case.kernel == "decode_attention":
+            inputs[3][0] = False  # batch row 0: no valid slot
+        got = parity.run_kernel(case, inputs)
+        want = parity.run_ref(case, inputs)
+        torch.cuda.synchronize()
+        err = parity.max_err(got, want)
+        tol = parity.KERNELS[case.kernel]["tols"][case.dtype]
+        if not err <= tol or not torch.isfinite(got.float()).all():
+            fail(f"{case.name}: kernel disagrees with its plain version "
+                 f"(scale-normalised err {err:.3e}, tolerance {tol})")
+        if case.kernel == "decode_attention" and got[0].any():
+            fail(f"{case.name}: a fully masked row is not zeros")
+        print(f"{case.name}: scale-normalised err {err:.3e} (tolerance {tol})")
+    gen = torch.Generator(device=device).manual_seed(0)
+    for dtype in ("float32", "bfloat16"):
+        for s, causal, window in ((96, True, 16), (100, True, 0), (80, False, 24),
+                                  (130, True, 1), (200, True, 70)):
+            q, k, v = (torch.randn(2, s, 32, generator=gen, device=device)
+                       .to(getattr(torch, dtype)) for _ in range(3))
+            err = parity.max_err(flash_attention(q, k, v, causal=causal, window=window),
+                                 attention_ref(q, k, v, causal=causal, window=window))
+            tol = parity.KERNELS["flash_attention"]["tols"][dtype]
+            if not err <= tol:
+                fail(f"flash_attention S={s} causal={causal} window={window} {dtype}: "
+                     f"err {err:.3e} > {tol}")
+            print(f"flash_attention S={s} causal={causal} window={window} {dtype}: "
+                  f"scale-normalised err {err:.3e} (tolerance {tol})")
+
+
+def check_flash_main(device) -> dict:
+    """flash_attention at the prefill's shapes: parity as a (BH, S, D) call,
+    timing as the GQA call the model makes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+
+    case = parity.KernelCase("flash_attention", (256, 1920, 64, True), "bfloat16")
+    inputs = parity.make_inputs(case, device=device)
+    err = parity.max_err(parity.run_kernel(case, inputs), parity.run_ref(case, inputs))
+    tol = parity.KERNELS["flash_attention"]["tols"]["bfloat16"]
+    if not err <= tol:
+        fail(f"{case.name}: err {err:.3e} > {tol}")
+    print(f"{case.name}: scale-normalised err {err:.3e} (tolerance {tol})")
+    del inputs
+    b, s, h, kvh, d = 8, 1920, 32, 4, 64
+    gen = torch.Generator(device=device).manual_seed(1)
+    q = torch.randn(b, s, h, d, generator=gen, device=device).bfloat16()
+    k, v = (torch.randn(b, s, kvh, d, generator=gen, device=device).bfloat16()
+            for _ in range(2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    got, want = flash_attention_gqa(q, k, v), attention_gqa_ref(q, k, v)
+    err = parity.max_err(got, want)
+    abs_err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:
+        fail(f"flash_attention_gqa at the prefill shape: err {err:.3e} > {tol}")
+    del got, want
+    torch.cuda.empty_cache()
+    t = turns(lambda: flash_attention_gqa(q, k, v, causal=True),
+              lambda: attention_gqa_ref(q, k, v, causal=True),
+              lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True),
+              calls=5, reps=5)
+    flops = 4 * d * (s * (s + 1) // 2) * b * h  # unmasked causal pairs, QK^T and PV
+    moved = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read; out written
+    bound_ms, bound_by = bound(flops, moved)
+    print(f"flash_attention_gqa q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: device "
+          f"time per call (CUDA graph of 5 calls): kernel {t['runs_ms'][0]:.4f} / "
+          f"{t['runs_ms'][1]:.4f} ms, plain {t['plain_runs_ms'][0]:.4f} / "
+          f"{t['plain_runs_ms'][1]:.4f} ms, library (scaled_dot_product_attention) "
+          f"{t['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP "
+          f"at 989 TFLOP/s, {moved} bytes at 3.35 TB/s); scale-normalised err {err:.3e}, "
+          f"max abs err {abs_err:.4g}")
+    spec = parity.KERNELS["flash_attention"]
+    return {"name": "flash_attention", "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"], "flops": flops,
+            "bytes": moved}
+
+
+def check_decode_main(device) -> dict:
+    """decode_attention at the decode's shapes with the real ring mask of
+    the last decode step (cache position 2046 of 2048 slots)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.models.attention import slot_validity
+
+    b, h, kvh, s, d = 8, 32, 4, 2048, 64
+    case = parity.KernelCase("decode_attention", (b, h, kvh, s, d), "bfloat16")
+    q, ck, cv, _ = parity.make_inputs(case, device=device)
+    mask = slot_validity(2046, s, 0, device)[None, :].expand(b, s).contiguous()
+    got, want = decode_attention(q, ck, cv, mask), decode_attention_plain(q, ck, cv, mask)
+    err = parity.max_err(got, want)
+    abs_err = float((got.float() - want.float()).abs().max())
+    tol = parity.KERNELS["decode_attention"]["tols"]["bfloat16"]
+    if not err <= tol:
+        fail(f"decode_attention at the decode shape: err {err:.3e} > {tol}")
+    qt = q[:, :, None, :]
+    kt, vt = (x.transpose(1, 2).contiguous() for x in (ck, cv))
+    amask = mask[:, None, None, :]
+    t = turns(lambda: decode_attention(q, ck, cv, mask),
+              lambda: decode_attention_plain(q, ck, cv, mask),
+              lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
+                                                     enable_gqa=True))
+    valid = int(mask.sum())  # (batch, slot) pairs whose K and V must be read
+    moved = 2 * q.numel() * 2 + mask.numel() + 2 * valid * kvh * d * 2
+    flops = 4 * d * valid * h
+    bound_ms, bound_by = bound(flops, moved)
+    print(f"decode_attention q {tuple(q.shape)} cache {tuple(ck.shape)} bf16, "
+          f"{valid // b} valid slots: device time per call (CUDA graph of 50 calls): kernel "
+          f"{t['runs_ms'][0] * 1e3:.2f} / {t['runs_ms'][1] * 1e3:.2f} us, plain "
+          f"{t['plain_runs_ms'][0] * 1e3:.2f} / {t['plain_runs_ms'][1] * 1e3:.2f} us, "
+          f"library (scaled_dot_product_attention) {t['library_ms'] * 1e3:.2f} us; bound "
+          f"{bound_ms * 1e3:.3f} us ({bound_by}: {moved} bytes at 3.35 TB/s); "
+          f"scale-normalised err {err:.3e}, max abs err {abs_err:.4g}")
+    spec = parity.KERNELS["decode_attention"]
+    return {"name": "decode_attention", "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
+            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": t["library_ms"], "bytes": moved}
+
+
+# --------------------------------------------------------------- phase 4
 def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
     """Drive ``repro_torch.launch.train`` with ``argv``; check it; return
-    its numbers, with the kernel's launches in the run (counts zeroed just
+    its numbers, with the kernels' launches in the run (counts zeroed just
     before)."""
     import torch
 
     from repro_torch.core import ChunkStore, RedoxLoader
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
     from repro_torch.launch.train import parse_args, train
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -136,9 +411,9 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         staged = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        chunk_gather_train.launches = 0
+        zero_launches()
         summary = train(args, on_batch=lambda step, feed: staged.append(feed))
-        launches = chunk_gather_train.launches
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         stats = summary["device_stats"]
         losses = summary["losses"]
@@ -149,8 +424,9 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
               f"overlap fraction {stats.overlap_fraction:.4f}; "
               f"{stats.bytes_to_device / 1e6:.3f} MB to device over {stats.steps} staged "
               f"batches; kernel launches {launches}")
-        if launches == 0 or launches != stats.steps or launches != stats.kernel_steps:
-            fail(f"kernel launches {launches} != staged batches {stats.steps}")
+        gathers = launches["chunk_gather_train"]
+        if gathers == 0 or gathers != stats.steps or gathers != stats.kernel_steps:
+            fail(f"kernel launches {gathers} != staged batches {stats.steps}")
         if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
             fail(f"expected {args.steps} finite losses, got {losses}")
         if abs(losses[0] - math.log(vocab)) > 2.0:
@@ -167,7 +443,7 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         store.close()
         print(f"staged batches equal the host stream ({len(staged)} steps)")
     return {
-        "launches": launches, "losses": losses,
+        "launches": gathers, "losses": losses,
         "tokens_per_s": summary["tokens_per_s"],
         "steady_tokens_per_s": summary["steady_tokens_per_s"],
         "max_memory_allocated_gib": peak / 2**30,
@@ -176,11 +452,162 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
     }
 
 
+def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
+    """From a profiler run: the device's idle share from ``start_marker``
+    to the last device event (``steps`` steps), the device operations per
+    step, the heaviest kernels, and the launches of kernels whose name
+    holds ``kernel`` (fails without any)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        trace_file = Path(work) / "trace.json"
+        prof.export_chrome_trace(str(trace_file))
+        events = json.loads(trace_file.read_text())["traceEvents"]
+    start = min((e["ts"] for e in events if e.get("name") == start_marker), default=None)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if start is None or not device:
+        fail("the profiler trace has no step marker or no device events")
+    end = max(d[1] for d in device)
+    busy, cur_s, cur_e, by_name, ops = 0.0, None, None, {}, 0
+    for s_, e_, name in device:
+        s_, e_ = max(s_, start), min(e_, end)
+        if e_ <= s_:
+            continue
+        ops += 1
+        by_name[name] = by_name.get(name, 0.0) + (e_ - s_)
+        if cur_e is None or s_ > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    window = end - start
+    idle = 1.0 - busy / window
+    print(f"device window {window / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, "
+          f"idle share {idle:.4f}; {ops} device operations, {ops / steps:.1f} per step")
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, t in top:
+        print(f"  {t / total:6.1%}  {t / 1e3:9.3f} ms  {name[:110]}")
+    ours = sum(t for n, t in by_name.items() if kernel in n)
+    each = [e_ - s_ for s_, e_, name in device if kernel in name]
+    if not each:
+        fail(f"the profiled path shows no {kernel} on the device")
+    print(f"  {kernel}: {ours / 1e3:.4f} ms of device time in the window "
+          f"({ours / total:.4%}); {len(each)} launches in the whole run, "
+          f"{statistics.mean(each):.3f} us each")
+    return {"idle_share": idle, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "ops_per_step": ops / steps, "kernel_share": ours / total, "kernel_launches": len(each),
+            "kernel_us_each": statistics.mean(each),
+            "top": [[name[:80], t / total] for name, t in top[:5]]}
+
+
+def where_time_goes(argv) -> dict:
+    """Profile a 4-step run of the training path from its third step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch.train import parse_args, train
+
+    def mark(step, feed):
+        with record_function(f"chip_smoke.step{step}"):
+            pass
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        args = parse_args(argv + ["--workdir", work, "--steps", "4"])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train(args, on_batch=mark)  # ends in torch.cuda.synchronize()
+    print("steps 3-4:")
+    out = device_profile(prof, "chip_smoke.step2", "chunk_gather_train_kernel", 2)
+    return {"idle_share": out["idle_share"], "window_ms": out["window_ms"],
+            "busy_ms": out["busy_ms"], "ops_per_step": out["ops_per_step"],
+            "gather_launches": out["kernel_launches"],
+            "gather_us_each": out["kernel_us_each"]}
+
+
+# --------------------------------------------------------------- phase 5
+def serve_path(argv) -> dict:
+    """Drive ``repro_torch.launch.serve`` with ``argv``; check it; return
+    its numbers and the run's summary (counts zeroed just before)."""
+    import torch
+
+    from repro_torch.launch.serve import build_parser, prefill_agreement, serve
+
+    args = build_parser().parse_args(argv)
+    steps = args.new_tokens - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    summary = serve(args, keep_logits=AGREEMENT_STEPS)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg_layers, vocab = summary["model"].cfg.num_layers, summary["model"].cfg.vocab_size
+    print(f"launches {launches}; prefill {summary['prefill_s']:.4f} s; decode "
+          f"{summary['decode_s']:.4f} s for {steps} steps, {summary['decode_tok_s']:.1f} "
+          f"tok/s (all steps), {summary['steady_decode_tok_s']:.1f} tok/s (steps 2-{steps}); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if launches["flash_attention"] != cfg_layers:
+        fail(f"flash_attention launched {launches['flash_attention']} times, "
+             f"expected {cfg_layers} (one per layer of the prefill)")
+    if launches["decode_attention"] != cfg_layers * steps:
+        fail(f"decode_attention launched {launches['decode_attention']} times, "
+             f"expected {cfg_layers * steps}")
+    tokens = summary["tokens"]
+    if tokens.shape != (args.batch, args.new_tokens) or not (
+            (tokens >= 0) & (tokens < vocab)).all():
+        fail(f"tokens {tuple(tokens.shape)} out of shape or range [0, {vocab})")
+    kept = [summary["prefill_logits"], *summary["logits"].values()]
+    if len(kept) != 1 + len(AGREEMENT_STEPS) or not all(
+            bool(torch.isfinite(x).all()) for x in kept):
+        fail("a kept logit is not finite")
+    rows = prefill_agreement(summary, AGREEMENT_STEPS)
+    for r in rows:
+        print(f"decode step {r['step']} vs a fresh prefill of {args.prompt_len + r['step'] + 1}"
+              f" tokens: scale-normalised err {r['err']:.3e} (tolerance {AGREEMENT_TOL}), "
+              f"argmax agrees on {r['argmax_agree']}/{r['rows']} rows "
+              f"(at least {AGREEMENT_MIN_ROWS})")
+        if not (r["err"] <= AGREEMENT_TOL and r["argmax_agree"] >= AGREEMENT_MIN_ROWS):
+            fail(f"decode step {r['step']} disagrees with a fresh prefill")
+    print("first sequence:", tokens[0, :16].tolist(), "...")
+    run = {"launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
+           "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
+           "decode_tok_s": summary["decode_tok_s"],
+           "steady_decode_tok_s": summary["steady_decode_tok_s"],
+           "max_memory_allocated_gib": peak / 2**30, "agreement": rows}
+    return run, summary
+
+
+def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
+    """Profile ``steps`` decode steps of the served model after a fresh
+    prefill of the same prompts, from the third step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train.train_step import build_decode_step, build_prefill_step
+
+    model = summary["model"]
+    prompts = summary["prompts"].to(model.device)
+    prompt_len = prompts.shape[1]
+    logits, cache = build_prefill_step(model, summary["max_len"])({"tokens": prompts})
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    decode = build_decode_step(model)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(steps):
+            with record_function(f"chip_smoke.decode{t}"):
+                pass
+            logits, cache = decode(cache, tok, prompt_len + t)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+    print(f"decode steps 3-{steps}:")
+    out = device_profile(prof, "chip_smoke.decode2", "decode_partial_kernel", steps - 2)
+    out["steps"] = steps
+    return out
+
+
+# --------------------------------------------------------------- phase 6
 def small_reference(device) -> None:
     """Reduced tinyllama in f32 on ``device`` against the same weights on
     the CPU: logits (dense and chunked attention) and one train step."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -220,62 +647,68 @@ def small_reference(device) -> None:
             fail(f"{device} disagrees with the CPU on the reduced model")
 
 
-def where_time_goes(argv) -> dict:
-    """Profile a short run of the main path; from the device timeline
-    after the third step begins, return the device's idle share and the
-    kernels that took the most device time."""
+def small_serving(device) -> list:
+    """Reduced tinyllama in f32: prefill + 12 greedy decode steps on
+    ``device`` against the same weights on the CPU, with a full cache, a
+    16-slot rotating window that the 24-token prompt overfills, and an
+    int8 cache. Tokens equal; logits within SMALL_TOL (SMALL_INT8_TOL for
+    int8)."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.launch.train import parse_args, train
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import build_decode_step, build_prefill_step
 
-    def mark(step, feed):
-        with record_function(f"chip_smoke.step{step}"):
-            pass
+    variants = (("full", {}, 16, 29), ("window", {"window": 16}, 24, 37),
+                ("int8", {"kv_cache_dtype": "int8"}, 16, 29))
+    out = []
+    for name, changes, prompt_len, max_len in variants:
+        cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), **changes)
+        cpu_model = build_model(cfg, device="cpu").init(0)
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, prompt_len))
+        results = []
+        for dev in ("cpu", device):
+            model = build_model(cfg, device=dev)
+            model.load_state_dict(cpu_model.state_dict())
+            decode = build_decode_step(model)
+            logits, cache = build_prefill_step(model, max_len)(
+                {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)})
+            logs = [logits[:, -1].double().cpu()]
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            toks = [tok.cpu()]
+            for t in range(max_len - prompt_len - 1):
+                logits, cache = decode(cache, tok, prompt_len + t)
+                logs.append(logits[:, 0].double().cpu())
+                tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+                toks.append(tok.cpu())
+            results.append((torch.cat(toks, 1), logs))
+        (tc, lc), (tg, lg) = results
+        err = max(float((g - c).abs().max() / c.abs().max()) for g, c in zip(lg, lc))
+        tol = SMALL_INT8_TOL if name == "int8" else SMALL_TOL
+        print(f"serving {name}: {len(lg)} logits (prefill + {len(lg) - 1} decode steps), "
+              f"max err {err:.3e} (tolerance {tol}); tokens equal: {torch.equal(tc, tg)}")
+        if not torch.equal(tc, tg) or not err <= tol:
+            fail(f"{device} disagrees with the CPU on reduced serving ({name})")
+        out.append({"variant": name, "err": err})
+    return out
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        args = parse_args(argv + ["--workdir", work, "--steps", "4"])
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            train(args, on_batch=mark)  # ends in torch.cuda.synchronize()
-        trace_file = Path(work) / "trace.json"
-        prof.export_chrome_trace(str(trace_file))
-        events = json.loads(trace_file.read_text())["traceEvents"]
-    start = min((e["ts"] for e in events if e.get("name") == "chip_smoke.step2"),
-                default=None)
-    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
-                    for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    if start is None or not device:
-        fail("the profiler trace has no step marker or no device events")
-    end = max(d[1] for d in device)
-    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
-    for s_, e_, name in device:
-        s_, e_ = max(s_, start), min(e_, end)
-        if e_ <= s_:
-            continue
-        by_name[name] = by_name.get(name, 0.0) + (e_ - s_)
-        if cur_e is None or s_ > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s_, e_
-        else:
-            cur_e = max(cur_e, e_)
-    busy += 0.0 if cur_e is None else cur_e - cur_s
-    window = end - start
-    idle = 1.0 - busy / window
-    print(f"device window {window / 1e3:.1f} ms (steps 3-{args.steps}), busy "
-          f"{busy / 1e3:.1f} ms, idle share {idle:.4f}")
-    total = sum(by_name.values())
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  {t / total:6.1%}  {t / 1e3:9.2f} ms  {name[:110]}")
-    gather = sum(t for n, t in by_name.items() if "chunk_gather_train_kernel" in n)
-    gathers = [e_ - s_ for s_, e_, name in device if "chunk_gather_train_kernel" in name]
-    if not gathers:
-        fail("the profiled main path shows no chunk_gather_train_kernel on the device")
-    print(f"  chunk_gather_train_kernel: {gather / 1e3:.4f} ms of device time in the "
-          f"window ({gather / total:.6%}); {len(gathers)} launches in the whole run, "
-          f"{statistics.mean(gathers):.3f} us each")
-    return {"idle_share": idle, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
-            "gather_launches": len(gathers), "gather_us_each": statistics.mean(gathers)}
+
+def build_all() -> None:
+    """One nvcc per kernel package, all started together."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_PACKAGES)) as pool:
+        futures = {name: pool.submit(build.build, name) for name in KERNEL_PACKAGES}
+        logs = {name: f.result() for name, f in futures.items()}  # raises a failed build
+    print(f"built {', '.join(KERNEL_PACKAGES)} in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        if log is None:
+            print(f"  {name}: cached")
+        for line in (log or "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  {name}: {line.strip()}")
 
 
 def main() -> int:
@@ -287,9 +720,6 @@ def main() -> int:
         fail(f"no port sources at {SRC / 'repro_torch'}")
     sys.path.insert(0, str(SRC))
 
-    from repro_torch.kernels import build, parity
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
-    from repro_torch.kernels.chunk_gather.ref import chunk_gather_train_ref
     from repro_torch.kernels.common import resolve_device
 
     # ------------------------------------------------------------ 1. env
@@ -312,83 +742,47 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build
     phase("2. build")
-    t0 = time.perf_counter()
-    log = build.build("chunk_gather")
-    print(f"built chunk_gather {'(cached) ' if log is None else ''}"
-          f"in {time.perf_counter() - t0:.2f} s")
-    for line in (log or "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  {line.strip()}")
+    build_all()
 
     # ------------------------------------------------- 3. kernel parity
-    phase("3. kernel parity (CUDA kernel vs plain PyTorch on the card)")
-    seq_len, batch = 2048, 8
-    trainer_case = parity.KernelCase("chunk_gather_train", (batch, seq_len, batch), "int32")
-    kernels = []
-    for case, row_pad in [(c, 128) for c in parity.iter_cases()] + [(trainer_case, 8)]:
-        inputs = parity.make_inputs(case, device=device, row_pad=row_pad)
-        got = parity.run_kernel(case, inputs)
-        want = parity.run_ref(case, inputs)
-        torch.cuda.synchronize()
-        tol = parity.KERNELS[case.kernel]["tols"][case.dtype]
-        abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        if not all(torch.equal(g, w) for g, w in zip(got, want)) or abs_err > tol:
-            fail(f"{case.name}: kernel disagrees with its plain version "
-                 f"(max abs err {abs_err}, tolerance {tol})")
-        print(f"{case.name} row_pad {row_pad}: equal (max abs err {abs_err})")
-    # Time at the trainer's shapes (row_pad 8, as the stager packs).
-    inputs = parity.make_inputs(trainer_case, device=device, row_pad=8)
-    slot, lens, idx = inputs
-
-    def kernel():
-        return chunk_gather_train(slot, lens, idx, seq_len=seq_len)
-
-    def plain():
-        return chunk_gather_train_ref(slot, lens, idx, seq_len=seq_len)
-
-    # Device time per call in a CUDA graph, in turns (plain, kernel, kernel,
-    # plain) so drift hits both alike; then the host time per call.
-    p_ms = graph_ms(plain)
-    k_ms, k_ms2 = graph_ms(kernel), graph_ms(kernel)
-    p_ms2 = graph_ms(plain)
-    k_host, p_host = host_ms(kernel), host_ms(plain)
-    moved, rows = gather_bytes(slot, lens, idx, seq_len)
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    abs_err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(kernel(), plain()))
-    print(f"chunk_gather_train at B={batch} S={seq_len} Lp={slot.shape[1]}: device time "
-          f"per call (CUDA graph of 50 calls, CUDA events): kernel {k_ms * 1e3:.3f} / "
-          f"{k_ms2 * 1e3:.3f} us, plain {p_ms * 1e3:.3f} / {p_ms2 * 1e3:.3f} us; host time "
-          f"per call: kernel {k_host * 1e3:.2f} us, plain {p_host * 1e3:.2f} us; bound "
-          f"{bound_ms * 1e3:.4f} us ({moved} bytes, {rows} distinct slot rows, at 3.35 TB/s)")
-    spec = parity.KERNELS["chunk_gather_train"]
-    entry = {
-        "name": "chunk_gather_train", "route": "cuda", "source": spec["source"],
-        "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
-        "ms": statistics.median([k_ms, k_ms2]), "plain_ms": statistics.median([p_ms, p_ms2]),
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-        "host_ms": k_host, "plain_host_ms": p_host,
-    }
-    kernels.append(entry)
-
-    # ------------------------------------------------------ 4. main path
-    phase("4. main path: repro_torch.launch.train " + " ".join(MAIN_ARGS))
-    run = main_path(MAIN_ARGS, batch=batch, seq_len=seq_len, vocab=32000)
-    entry["launches"] = run["launches"]
+    phase("3. kernel parity (CUDA kernels vs plain PyTorch on the card)")
+    kernels = {"chunk_gather_train": check_chunk_gather(device)}
+    check_attention_grid(device)
+    kernels["flash_attention"] = check_flash_main(device)
+    kernels["decode_attention"] = check_decode_main(device)
     torch.cuda.empty_cache()
 
-    phase("4b. where the main path's device time goes (torch.profiler)")
+    # ------------------------------------------------ 4. training path
+    phase("4. training main path: repro_torch.launch.train " + " ".join(MAIN_ARGS))
+    run = main_path(MAIN_ARGS, batch=8, seq_len=2048, vocab=32000)
+    kernels["chunk_gather_train"]["launches"] = run["launches"]
+    torch.cuda.empty_cache()
+
+    phase("4b. where the training path's device time goes (torch.profiler)")
     run["profile"] = where_time_goes(MAIN_ARGS)
     torch.cuda.empty_cache()
 
-    # -------------------------------------- 5. small-input reference check
-    phase("5. reduced tinyllama f32: card vs CPU on the same weights")
+    # ------------------------------------------------- 5. serving path
+    phase("5. serving main path: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
+    serve_run, summary = serve_path(SERVE_ARGS)
+    for name in ("flash_attention", "decode_attention"):
+        kernels[name]["launches"] = serve_run["launches"][name]
+
+    phase("5b. where decode's device time goes (torch.profiler)")
+    serve_run["decode_profile"] = where_decode_time_goes(summary)
+    del summary
+    torch.cuda.empty_cache()
+
+    # -------------------------------------- 6. small-input reference check
+    phase("6. reduced tinyllama f32: card vs CPU on the same weights")
     small_reference(device)
+    serve_run["small_serving"] = small_serving(device)
 
     # ----------------------------------------------------------- result
     print(json.dumps({"main_path": run}))
+    print(json.dumps({"serve_path": serve_run}))
     print(card_line)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,0 +1,122 @@
+"""The ``decode_attention`` wrapper (``repro/kernels/decode_attention/ops.py``).
+
+On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
+launches the kernel in ``decode_attention.cu`` on the current stream, or
+raises. ``decode_attention.launches`` counts kernel launches, and only
+those (one per call: the split-S partial pass and its merge).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+from ..common import resolve_device
+from .ref import decode_attention_plain
+
+__all__ = ["HEAD_DIMS", "decode_attention"]
+
+#: Head dims the CUDA kernel is instantiated for.
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TARGET_BLOCKS_PER_SM = 2
+_MIN_ROWS_PER_SPLIT = 256
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    fn = lib.decode_attention_launch
+    if fn.argtypes is None:
+        # Pointers and the stream as c_void_p: never cut to 32 bits.
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.decode_attention_error_string.argtypes = [ctypes.c_int]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(blocks: int, s: int, sms: int) -> int:
+    """How many parts the cache length is split into, so that about two
+    blocks per SM are in flight, each with at least 256 cache rows."""
+    want = -(-_TARGET_BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(want, -(-s // _MIN_ROWS_PER_SPLIT), 65535))
+
+
+def _check(q, cache_k, cache_v, mask) -> None:
+    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v), ("mask", mask)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.requires_grad:
+            raise RuntimeError(f"decode_attention has no backward; {name} requires grad")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if cache_k.dtype != q.dtype or cache_v.dtype != q.dtype:
+        raise TypeError(f"cache dtypes {cache_k.dtype}/{cache_v.dtype} differ from q's {q.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be bool, got {mask.dtype}")
+    if q.ndim != 3 or cache_k.ndim != 4 or mask.ndim != 2:
+        raise ValueError("expected q (B, H, D), cache_k/v (B, S, KVH, D), mask (B, S)")
+    b, h, d = q.shape
+    _, s, kvh, dk = cache_k.shape
+    if cache_v.shape != cache_k.shape or cache_k.shape[0] != b or dk != d:
+        raise ValueError(f"cache {tuple(cache_k.shape)}/{tuple(cache_v.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads are not a multiple of {kvh} kv heads")
+    if tuple(mask.shape) != (b, s):
+        raise ValueError(f"mask {tuple(mask.shape)} is not (B, S) = {(b, s)}")
+    if s == 0:
+        raise ValueError("the cache has no slots")
+
+
+def decode_attention(q, cache_k, cache_v, mask):
+    """One-token GQA attention against a KV cache.
+
+    ``q`` (B, H, D); ``cache_k``/``cache_v`` (B, S, KVH, D); ``mask``
+    (B, S) bool, True where a slot holds a valid position (ring buffers
+    included). Returns (B, H, D) in ``q.dtype``; a row with no valid slot
+    is zeros. Query head ``h`` reads kv head ``h // (H // KVH)``.
+    """
+    _check(q, cache_k, cache_v, mask)
+    device = q.device
+    if device.type == "cpu":
+        return decode_attention_plain(q, cache_k, cache_v, mask)
+    resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
+    b, h, d = q.shape
+    s, kvh = cache_k.shape[1], cache_k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one the kernel is built for {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
+        raise ValueError("q and the caches must be 16-byte aligned")
+    g = h // kvh
+    splits = _splits(b * kvh * -(-g // 8), s, _sm_count(device.index or 0))
+    out = torch.empty_like(q)
+    part = torch.empty((splits, b * h, d + 2), dtype=torch.float32, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.decode_attention_launch(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), part.data_ptr(), b, kvh, g, s, d, splits, _DTYPES[q.dtype],
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError("decode_attention launch failed: "
+                           + lib.decode_attention_error_string(rc).decode())
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

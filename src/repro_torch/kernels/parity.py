@@ -1,12 +1,14 @@
 """Kernel-vs-plain parity registry for the port's CUDA kernels.
 
 The counterpart of ``repro/kernels/parity.py``, for the kernels ported so
-far. Each entry carries the reference registry's shape grid and exact
-tolerance (copied, not imported: the port does not import the JAX
-package), a deterministic input generator, and the kernel and its plain
-PyTorch version. ``chip_smoke.py`` holds every kernel to its plain version
-on the card over these shapes plus the shapes the trainer gives it; the
-CPU tests hold the plain version to the JAX function over the same grid.
+far. Each entry carries the reference registry's shape grid and
+per-dtype tolerance (copied, not imported: the port does not import the
+JAX package), its deterministic input generator (same seeding, same
+draws), and the kernel and its plain PyTorch version. Errors are the
+reference's scale-normalised max abs error (:func:`max_err`).
+``chip_smoke.py`` holds every kernel to its plain version on the card over
+these shapes plus the shapes the main paths give it; the CPU tests hold
+the plain version to the JAX function over the same grid.
 """
 
 from __future__ import annotations
@@ -20,8 +22,13 @@ import torch
 from .chunk_gather.ops import chunk_gather_train
 from .chunk_gather.ref import chunk_gather_train_ref
 from .common import round_up
+from .decode_attention.ops import decode_attention
+from .decode_attention.ref import decode_attention_plain
+from .flash_attention.ops import flash_attention
+from .flash_attention.ref import attention_ref
 
-__all__ = ["KERNELS", "KernelCase", "iter_cases", "make_inputs", "run_kernel", "run_ref"]
+__all__ = ["KERNELS", "KernelCase", "iter_cases", "make_inputs", "max_err", "run_kernel",
+           "run_ref"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +46,29 @@ class KernelCase:
 
 
 KERNELS: dict[str, dict] = {
+    "flash_attention": {
+        # (bh, s, d, causal)
+        "shapes": [
+            (2, 128, 32, True), (2, 128, 32, False),
+            (4, 256, 64, True), (4, 256, 64, False),
+            (3, 192, 64, True),
+            (1, 512, 128, True),
+        ],
+        "tols": {"float32": 2e-5, "bfloat16": 2e-2},
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:80",
+        "source": "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+    },
+    "decode_attention": {
+        # (b, h, kvh, s, d)
+        "shapes": [
+            (2, 8, 2, 512, 64),
+            (1, 4, 4, 256, 32),
+            (3, 16, 4, 1024, 128),
+        ],
+        "tols": {"float32": 2e-5, "bfloat16": 2e-2},
+        "replaces": "src/repro/kernels/decode_attention/decode_attention.py:63",
+        "source": "src/repro_torch/kernels/decode_attention/decode_attention.cu",
+    },
     "chunk_gather_train": {
         # (num_slots, seq_len, B); slot rows padded like the reference's cases
         "shapes": [(64, 128, 16), (32, 100, 8), (16, 64, 32)],
@@ -49,12 +79,15 @@ KERNELS: dict[str, dict] = {
 }
 
 
-def iter_cases() -> list[KernelCase]:
+def iter_cases(kernel: str | None = None) -> list[KernelCase]:
+    """Every (shape, dtype) cell of the grid, or of one kernel's grid."""
     out = []
-    for kernel, spec in KERNELS.items():
+    for name, spec in KERNELS.items():
+        if kernel is not None and name != kernel:
+            continue
         for shape in spec["shapes"]:
             for dtype in spec["tols"]:
-                out.append(KernelCase(kernel, shape, dtype))
+                out.append(KernelCase(name, shape, dtype))
     return out
 
 
@@ -64,7 +97,20 @@ def make_inputs(case: KernelCase, seed: int = 0, *, device="cpu", row_pad: int =
     ``row_pad`` is the slot-row padding: the reference's cases pad to 128
     (its TPU lane width); the trainer's packer pads to 8.
     """
+    # zlib.crc32, not hash(): stable across processes (PYTHONHASHSEED).
     rng = np.random.default_rng((seed, zlib.crc32(case.kernel.encode()), *case.shape))
+    if case.kernel in ("flash_attention", "decode_attention"):
+        dt = getattr(torch, case.dtype)
+
+        def normal(*shape):
+            return torch.as_tensor(rng.normal(size=shape), device=device).to(dt)
+
+        if case.kernel == "flash_attention":
+            bh, s, d, _ = case.shape
+            return tuple(normal(bh, s, d) for _ in range(3))
+        b, h, kvh, s, d = case.shape
+        q, ck, cv = normal(b, h, d), normal(b, s, kvh, d), normal(b, s, kvh, d)
+        return q, ck, cv, torch.as_tensor(rng.random((b, s)) < 0.75, device=device)
     if case.kernel == "chunk_gather_train":
         slots, seq_len, batch = case.shape
         lp = round_up(seq_len + 1, row_pad)
@@ -80,13 +126,37 @@ def make_inputs(case: KernelCase, seed: int = 0, *, device="cpu", row_pad: int =
 
 
 def run_kernel(case: KernelCase, inputs: tuple):
+    if case.kernel == "flash_attention":
+        return flash_attention(*inputs, causal=case.shape[3])
+    if case.kernel == "decode_attention":
+        return decode_attention(*inputs)
     if case.kernel == "chunk_gather_train":
         return chunk_gather_train(*inputs, seq_len=case.shape[1])
     raise ValueError(f"unknown kernel {case.kernel!r}")
 
 
 def run_ref(case: KernelCase, inputs: tuple):
+    if case.kernel == "flash_attention":
+        return attention_ref(*inputs, causal=case.shape[3])
+    if case.kernel == "decode_attention":
+        return decode_attention_plain(*inputs)
     if case.kernel == "chunk_gather_train":
         return chunk_gather_train_ref(*inputs, seq_len=case.shape[1])
     raise ValueError(f"unknown kernel {case.kernel!r}")
 
+
+def _leaves(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def max_err(out, ref) -> float:
+    """Scale-normalised max abs error, maxed over output leaves:
+    ``max |out - ref| / (max |ref| + 1e-6)`` in f32 (the reference's
+    ``_max_err``)."""
+    worst = 0.0
+    for o, r in zip(_leaves(out), _leaves(ref)):
+        o32 = o.detach().float()
+        r32 = r.detach().float().to(o32.device)
+        scale = float(r32.abs().max()) + 1e-6 if r32.numel() else 1e-6
+        worst = max(worst, float((o32 - r32).abs().max()) / scale if o32.numel() else 0.0)
+    return worst

@@ -1,0 +1,178 @@
+"""Serving launcher: batched prefill + greedy decode (``repro/launch/serve.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --full \
+        --batch 8 --prompt-len 1920 --new-tokens 128 --seed 0
+
+Runs on the CUDA card by default (``--device cpu`` for the CPU, where the
+attention kernels' plain versions run); a missing or non-Hopper card is an
+error, never a silent CPU run. The prompt goes through ``build_prefill_step``
+(attention in the flash-attention kernel, the K/V sized into a decode
+cache of ``prompt_len + new_tokens`` slots), then each new token through
+``build_decode_step`` (attention in the decode-attention kernel, the
+cache updated in place). Tokens are greedy (``argmax``).
+
+``--list-archs`` prints every registered arch with its serving capability
+and exits 0; asking to serve an encoder-only arch exits 1. An arch whose
+block kinds are not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item. ``--seed`` makes the random prompts and weights
+reproducible. :func:`serve` is the same run as a function, for callers
+that check its output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config, list_archs, reduced
+from ..kernels.common import resolve_device
+from ..models import build_model
+from ..train.train_step import build_decode_step, build_prefill_step
+
+__all__ = ["build_parser", "main", "prefill_agreement", "serve"]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list_archs(),
+                    help="arch to serve (required unless --list-archs)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="RNG seed for prompts and parameter init")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--list-archs", action="store_true",
+                    help="list archs and their serving capability, exit 0")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the model runs (cuda needs a capability-9.0 card)")
+    return ap
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
+    """Prefill ``args.batch`` random prompts, then decode greedily.
+
+    Returns ``prompts`` (B, P) and ``tokens`` (B, new_tokens) as CPU int32
+    tensors, ``prefill_logits`` (B, V) f32, ``logits`` {t: (B, V) f32} for
+    each decode step ``t`` in ``keep_logits`` (step ``t`` reads token ``t``
+    at position P + t and predicts token t + 1), ``prefill_s``,
+    ``decode_s`` (all decode steps), ``decode_tok_s`` and
+    ``steady_decode_tok_s`` (steps 2+, None with fewer than two steps),
+    and the ``model``.
+    """
+    if args.new_tokens < 1 or args.prompt_len < 1 or args.batch < 1:
+        raise ValueError("--batch, --prompt-len and --new-tokens must be >= 1")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if not cfg.supports_decode():
+        raise ValueError(f"{args.arch} is encoder-only: no autoregressive serving path")
+    if not args.full:
+        cfg = reduced(cfg)
+    model = build_model(cfg, device=device).init(args.seed)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32))
+    max_len = args.prompt_len + args.new_tokens
+    prefill = build_prefill_step(model, max_len=max_len)
+    decode = build_decode_step(model)
+    print(f"arch={args.arch} params={cfg.param_count():,d} device={device} "
+          f"batch={args.batch} prompt={args.prompt_len} new={args.new_tokens}")
+
+    keep = set(keep_logits)
+    inputs = {"tokens": prompts.to(device)}
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(inputs)
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    prefill_logits = logits[:, -1].float()
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    print(f"prefill {args.batch}x{args.prompt_len} in {prefill_s:.3f}s")
+    out, kept = [tok], {}
+    t_step1 = None
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(args.new_tokens - 1):
+        logits, cache = decode(cache, tok, args.prompt_len + t)
+        tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+        if t in keep:
+            kept[t] = logits[:, 0].float()
+        if t == 0:
+            _sync(device)
+            t_step1 = time.perf_counter()
+    _sync(device)
+    t_end = time.perf_counter()
+    decode_s = t_end - t0
+    steps = args.new_tokens - 1
+    tokens = torch.cat(out, dim=1).cpu()
+    summary = dict(
+        prompts=prompts, tokens=tokens, prefill_logits=prefill_logits, logits=kept,
+        prefill_s=prefill_s, decode_s=decode_s,
+        decode_tok_s=steps * args.batch / decode_s if steps else None,
+        steady_decode_tok_s=((steps - 1) * args.batch / (t_end - t_step1)
+                             if steps > 1 else None),
+        model=model, max_len=max_len,
+    )
+    if steps:
+        print(f"decoded {steps} steps x {args.batch} in {decode_s:.3f}s "
+              f"({summary['decode_tok_s']:.1f} tok/s)")
+    print("first sequence:", tokens[0].tolist())
+    return summary
+
+
+def prefill_agreement(summary: dict, steps) -> list[dict]:
+    """Hold decode against prefill on one :func:`serve` run.
+
+    For each decode step ``t`` in ``steps`` (kept in ``summary["logits"]``),
+    a fresh prefill over the prompt plus tokens 0..t must give, at its last
+    position, the logits decode step ``t`` gave. Returns per step the
+    scale-normalised max error ``max |decode - prefill| / max |prefill|``
+    and the number of rows whose argmax agrees.
+    """
+    model = summary["model"]
+    device = model.device
+    out = []
+    for t in steps:
+        seq = torch.cat([summary["prompts"], summary["tokens"][:, : t + 1]], dim=1)
+        ref, _ = build_prefill_step(model, max_len=seq.shape[1])({"tokens": seq.to(device)})
+        ref = ref[:, -1].float()
+        got = summary["logits"][t]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        out.append({"step": t, "err": err, "argmax_agree": agree, "rows": got.shape[0]})
+    return out
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.list_archs:
+        # Explicit listing: encoder-only archs are information, not misuse.
+        for arch in list_archs():
+            kind = "decode" if get_config(arch).supports_decode() else "encoder-only"
+            print(f"{arch}: {kind}")
+        return 0
+    if args.arch is None:
+        ap.error("--arch is required unless --list-archs is given")
+    if not get_config(args.arch).supports_decode():
+        print(f"{args.arch} is encoder-only: no autoregressive serving path")
+        return 1
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        ap.error(str(e))
+    serve(args)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -81,10 +81,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.data_server is not None:
-        ap.error("--data-server is not ported yet (ROADMAP.md §1 item 8: "
+        ap.error("--data-server is not ported yet (ROADMAP.md §1 item 7: "
                  "service/transport/autotune)")
     if args.autotune:
-        ap.error("--autotune is not ported yet (ROADMAP.md §1 item 8: "
+        ap.error("--autotune is not ported yet (ROADMAP.md §1 item 7: "
                  "service/transport/autotune)")
     if args.suspend_after is not None and args.resume_data is None:
         ap.error("--suspend-after requires --resume-data")

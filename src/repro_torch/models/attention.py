@@ -1,22 +1,36 @@
-"""GQA attention, dense and chunked paths (``repro/models/attention.py``).
+"""GQA attention: dense, chunked, prefill and decode paths (``repro/models/attention.py``).
 
 Layouts as in the reference: activations (B, S, d_model); q (B, S, H, D);
-k/v (B, S, KVH, D); weights (in, out). The numerics follow the reference
-op for op: QKᵀ in the compute dtype then cast to f32 and scaled, masks at
-``NEG_INF = -1e30`` (not ``-inf``), the softmax in f32 cast back to
-``q.dtype`` before the PV product, and the GQA expand as
-``repeat_interleave`` (``jnp.repeat``). Plain PyTorch: the reference
-model calls no Pallas kernel here either. The sequence-sharded
-``_chunked_attention_vecq`` and the decode path come with later slices.
+k/v (B, S, KVH, D); weights (in, out). The training paths are plain
+PyTorch and follow the reference op for op: QKᵀ in the compute dtype then
+cast to f32 and scaled, masks at ``NEG_INF = -1e30`` (not ``-inf``), the
+softmax in f32 cast back to ``q.dtype`` before the PV product, and the
+GQA expand as ``repeat_interleave`` (``jnp.repeat``).
+
+Serving goes through the two attention kernels. Prefill (``want_cache``)
+is a causal forward with no gradient, so it calls ``flash_attention_gqa``;
+one-token decode calls ``decode_attention`` against the KV cache, which it
+updates in place (the reference donates it). Training keeps the plain
+paths: the flash kernel has no backward and refuses inputs that require
+grad. The sequence-sharded ``_chunked_attention_vecq`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.flash_attention.ops import flash_attention_gqa
 from .common import apply_rope, make_rope, scaled_init
 
-__all__ = ["attention_block", "init_attention"]
+__all__ = [
+    "attention_block",
+    "decode_attention_block",
+    "dequantize_kv",
+    "init_attention",
+    "quantize_kv",
+    "slot_validity",
+]
 
 NEG_INF = -1e30
 
@@ -116,8 +130,20 @@ def _chunked_attention(q, k, v, cfg):
     return torch.stack(blocks, dim=1).reshape(b, s, h, d)
 
 
-def attention_block(p, x, cfg, *, positions=None):
-    """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
+def _no_softcap(cfg) -> None:
+    if cfg.logit_softcap:
+        raise NotImplementedError(
+            f"{cfg.name}: logit_softcap is set, and the attention kernels have no "
+            "softcap (no registered config sets one)"
+        )
+
+
+def attention_block(p, x, cfg, *, positions=None, want_cache=False):
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)).
+
+    With ``want_cache`` (prefill, no gradient) the attention runs in the
+    flash-attention kernel; otherwise in the plain dense or chunked path.
+    """
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     if positions is None:
@@ -126,6 +152,11 @@ def attention_block(p, x, cfg, *, positions=None):
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     kv = (k, v)
+    if want_cache:
+        _no_softcap(cfg)
+        out = flash_attention_gqa(q, k, v, causal=cfg.causal, window=cfg.window)
+        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
+        return out, kv
     k = _expand_kv(k, cfg)
     v = _expand_kv(v, cfg)
     if s <= cfg.attn_dense_threshold:
@@ -133,9 +164,80 @@ def attention_block(p, x, cfg, *, positions=None):
     elif cfg.attn_shard == "seq":
         raise NotImplementedError(
             "attn_shard='seq' (_chunked_attention_vecq) is not ported yet: "
-            "ROADMAP.md §1 item 6 (dense-family remainder)"
+            "ROADMAP.md §1 item 5 (dense-family remainder)"
         )
     else:
         out = _chunked_attention(q, k, v, cfg)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
     return out, kv
+
+
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantisation. t: (..., D).
+
+    Scale ``max |t| / 127`` floored at 1e-8, round half to even, clipped to
+    ±127; the scale is stored as bf16.
+    """
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(t32 / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale.float()).to(dtype)
+
+
+def slot_validity(cache_pos: int, s_c: int, window: int, device) -> torch.Tensor:
+    """(S_c,) bool: slot ``j`` holds absolute position ``cache_pos -
+    ((cache_pos - j) mod S_c)``; valid when that is >= 0 and, with a
+    window, inside it. ``torch.remainder`` takes the divisor's sign, as
+    ``jnp.mod`` does."""
+    j = torch.arange(s_c, device=device)
+    slot_pos = cache_pos - torch.remainder(cache_pos - j, s_c)
+    valid = slot_pos >= 0
+    if window:
+        valid &= slot_pos > cache_pos - window
+    return valid
+
+
+def decode_attention_block(p, x, cache_k, cache_v, cache_pos: int, cfg,
+                           k_scale=None, v_scale=None):
+    """One-token decode against a (possibly rotating-window) KV cache.
+
+    x: (B, 1, d); cache_k/v: (B, S_c, KVH, D); ``cache_pos`` the absolute
+    position of this token. Writes this token's K/V into slot ``cache_pos
+    % S_c`` of the cache **in place** and returns the block output (B, 1,
+    d). Keys are stored RoPE'd at absolute positions, so a rotating buffer
+    (``S_c == window``) needs no re-rotation.
+
+    With ``cfg.kv_cache_dtype == "int8"`` the cache is int8 with bf16
+    per-(token, head) scales (k_scale/v_scale: (B, S_c, KVH, 1)), updated
+    in place too; the cache is dequantized in plain PyTorch before the
+    kernel, as the reference does.
+    """
+    _no_softcap(cfg)
+    b = x.shape[0]
+    hd = cfg.head_dim_
+    s_c = cache_k.shape[1]
+    q, k, v = _project_qkv(p, x, cfg)
+    pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
+    sin, cos = make_rope(pos, hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    slot = cache_pos % s_c
+    if cfg.kv_cache_dtype == "int8":
+        kq, ks = quantize_kv(k[:, 0])
+        vq, vs = quantize_kv(v[:, 0])
+        cache_k[:, slot], k_scale[:, slot] = kq, ks
+        cache_v[:, slot], v_scale[:, slot] = vq, vs
+        k_eff = dequantize_kv(cache_k, k_scale, x.dtype)
+        v_eff = dequantize_kv(cache_v, v_scale, x.dtype)
+    else:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
+        k_eff, v_eff = cache_k, cache_v
+    valid = slot_validity(cache_pos, s_c, cfg.window, x.device)
+    mask = valid[None, :].expand(b, s_c).contiguous()
+    out = decode_attention(q[:, 0].contiguous(), k_eff, v_eff, mask)  # (B, H, D)
+    return out.reshape(b, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]

@@ -9,6 +9,7 @@ tests move weights across with :mod:`repro_torch.models.convert`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -59,11 +60,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's numpy-float32 RoPE frequencies on ``device``, made
+    once: a copy from host memory on every call waits for the card, once
+    per layer of every decode step. Made outside inference mode, so that a
+    training step may use it after a serving step has."""
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
 def make_rope(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
     """(sin, cos) tables for the given positions; fp32."""
-    half = head_dim // 2
-    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(positions.device)
+    freqs = _rope_freqs(head_dim // 2, float(theta), positions.device)
     angles = positions.float()[..., None] * freqs  # (..., half)
     return torch.sin(angles), torch.cos(angles)
 

@@ -14,8 +14,17 @@ way back). ``remat="dots"`` / ``"full"`` checkpoint each layer with
 ``torch.utils.checkpoint`` (non-reentrant): only the layer inputs are
 kept, and the attention logits are recomputed in the backward pass.
 
+Serving mirrors the reference: ``forward(..., want_cache=True)`` (prefill,
+attention through the flash-attention kernel) also returns each segment's
+``{"k", "v"}`` stacks (L, B, S, KVH, D); ``cache_specs`` / ``init_cache``
+give the decode cache, stacked per segment like the parameters (rotating
+window buffers when ``cfg.window`` is set, int8 with bf16 scales when
+``cfg.kv_cache_dtype == "int8"``); ``decode_step`` runs one token through
+every layer against it (attention through the decode-attention kernel),
+updating it in place.
+
 Only the ``attn_mlp`` block kind without a frontend is ported; the other
-kinds, frontends, and decode caches raise and wait for later slices.
+kinds and the frontends raise and wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
-from .attention import attention_block, init_attention
+from .attention import attention_block, decode_attention_block, init_attention
 from .common import normal_init, rms_norm
 from .mlp import init_mlp, mlp_block
 
@@ -35,12 +44,12 @@ __all__ = ["Model", "build_model"]
 
 #: Where each block kind that is not ported yet is queued (ROADMAP.md §1).
 _NOT_PORTED = {
-    "shared_attn": "ROADMAP.md §1 item 3 (hybrid family)",
-    "mamba2": "ROADMAP.md §1 item 3 (hybrid family)",
-    "attn_dense_moe": "ROADMAP.md §1 item 4 (MoE)",
-    "attn_moe": "ROADMAP.md §1 item 4 (MoE)",
-    "mlstm": "ROADMAP.md §1 item 5 (xLSTM)",
-    "slstm": "ROADMAP.md §1 item 5 (xLSTM)",
+    "shared_attn": "ROADMAP.md §1 item 1 (hybrid family)",
+    "mamba2": "ROADMAP.md §1 item 1 (hybrid family)",
+    "attn_dense_moe": "ROADMAP.md §1 item 3 (MoE)",
+    "attn_moe": "ROADMAP.md §1 item 3 (MoE)",
+    "mlstm": "ROADMAP.md §1 item 4 (xLSTM)",
+    "slstm": "ROADMAP.md §1 item 4 (xLSTM)",
 }
 REMAT_MODES = ("none", "dots", "full")
 
@@ -53,6 +62,39 @@ def _attn_mlp_block(p, x, cfg):
     h, _ = attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
     x = x + h
     return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _prefill_block(p, x, cfg):
+    """``_attn_mlp_block`` through the flash kernel; also returns (k, v)."""
+    h, kv = attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+                            want_cache=True)
+    x = x + h
+    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+
+
+def _decode_block(p, x, cache, cache_pos, cfg):
+    """One-token ``attn_mlp`` block against one layer's cache (updated in
+    place). Returns x."""
+    h = decode_attention_block(
+        p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"], cache["v"],
+        cache_pos, cfg, k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+    )
+    x = x + h
+    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _cache_shapes(cfg, batch, max_len, cdt) -> dict:
+    """{leaf: (shape, dtype)} for one attention block's decode cache entry.
+    KV caches live in the compute dtype, or int8 with bf16 per-(token,
+    head) scales; a windowed config keeps only ``min(max_len, window)``
+    slots."""
+    s = min(max_len, cfg.window) if cfg.window else max_len
+    shp = (batch, s, cfg.num_kv_heads, cfg.head_dim_)
+    if cfg.kv_cache_dtype == "int8":
+        sshp = (batch, s, cfg.num_kv_heads, 1)
+        return {"k": (shp, torch.int8), "k_scale": (sshp, torch.bfloat16),
+                "v": (shp, torch.int8), "v_scale": (sshp, torch.bfloat16)}
+    return {"k": (shp, cdt), "v": (shp, cdt)}
 
 
 class _AttnMlpSegment(nn.Module):
@@ -125,7 +167,7 @@ class Model(nn.Module):
         if cfg.frontend != "none":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.frontend!r} frontend stub is not ported "
-                "yet: ROADMAP.md §1 item 6 (dense-family remainder)"
+                "yet: ROADMAP.md §1 item 5 (dense-family remainder)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -178,25 +220,68 @@ class Model(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head.to(x.dtype)
 
-    def forward(self, inputs: dict, *, remat: str = "none"):
+    def forward(self, inputs: dict, *, remat: str = "none", want_cache: bool = False):
         """Full-sequence pass over ``inputs["tokens"]`` (B, S) int.
 
         Returns ``(logits (B, S, V), aux)``; ``aux`` is the f32 zero the
-        reference returns for blocks without an auxiliary loss.
+        reference returns for blocks without an auxiliary loss. With
+        ``want_cache`` (prefill: no gradient, attention in the flash
+        kernel) returns ``(logits, aux, caches)``, ``caches`` one
+        ``{"k", "v"}`` dict of (L, B, S, KVH, D) stacks per segment.
         """
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
         cfg = self.cfg
         x = self._embed_inputs(inputs)
         ckpt = remat != "none" and torch.is_grad_enabled()
+        caches = []
         for seg in self.segments:
+            ks, vs = [], []
             for lp in seg.layers():
-                if ckpt:
+                if want_cache:
+                    x, (k, v) = _prefill_block(lp, x, cfg)
+                    ks.append(k)
+                    vs.append(v)
+                elif ckpt:
                     x = checkpoint(_attn_mlp_block, lp, x, cfg, use_reentrant=False)
                 else:
                     x = _attn_mlp_block(lp, x, cfg)
+            if want_cache:
+                caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if want_cache:
+            return self._logits(x), aux, caches
         return self._logits(x), aux
+
+    # ------------------------------------------------------------ decode
+    def cache_specs(self, batch: int, max_len: int, dtype=None) -> list[dict]:
+        """Per segment, ``{leaf: (shape, dtype)}`` of the decode cache, each
+        shape with the segment's leading layers axis."""
+        cdt = dtype or _dtype(self.cfg.compute_dtype)
+        return [
+            {name: ((count, *shape), dt)
+             for name, (shape, dt) in _cache_shapes(self.cfg, batch, max_len, cdt).items()}
+            for _, count in self.cfg.segments()
+        ]
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
+        """Zero decode cache on the model's device (mirrors the segments)."""
+        return [
+            {name: torch.zeros(shape, dtype=dt, device=self.device)
+             for name, (shape, dt) in spec.items()}
+            for spec in self.cache_specs(batch, max_len, dtype)
+        ]
+
+    def decode_step(self, caches: list[dict], tokens, cache_pos: int):
+        """One token for the whole batch. ``tokens`` (B, 1) int; ``cache_pos``
+        the absolute position of that token. Updates ``caches`` in place
+        and returns ``(logits (B, 1, V), caches)``."""
+        cfg = self.cfg
+        x = self._embed_inputs({"tokens": tokens})
+        for seg, cache in zip(self.segments, caches):
+            for i, lp in enumerate(seg.layers()):
+                x = _decode_block(lp, x, {k: t[i] for k, t in cache.items()}, cache_pos, cfg)
+        return self._logits(x), caches
 
 
 def build_model(cfg: ModelConfig, *, device=None) -> Model:

@@ -13,7 +13,7 @@ Unlike the reference, which returns new trees, ``update`` works in place:
 the moments, the master copy and the parameters are overwritten, so a
 step holds one set of optimizer state on the card, not two.
 
-Adafactor and SGD-momentum are not ported yet (ROADMAP.md §1 item 7).
+Adafactor and SGD-momentum are not ported yet (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def make_optimizer(cfg: RunConfig) -> Optimizer:
         return _adamw(cfg)
     if cfg.optimizer in ("adafactor", "sgdm"):
         raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet: ROADMAP.md §1 item 7"
+            f"optimizer {cfg.optimizer!r} is not ported yet: ROADMAP.md §1 item 6"
         )
     raise ValueError(cfg.optimizer)
 

@@ -11,7 +11,12 @@ holds device tensors (``loss``, ``grad_norm``, ``ce``, ``z_loss``,
 ``aux``) that are not synchronised. Microbatching splits the batch along
 its first axis and accumulates gradients in the parameter dtype, or in
 ``grad_allreduce_dtype`` when one is set, as the reference's scan does.
-The serving steps come with the serving slice.
+
+``build_prefill_step`` / ``build_decode_step`` are the serving programs:
+prefill runs the prompt through the model (attention in the flash kernel)
+and sizes its K/V into the decode cache; decode runs one token (attention
+in the decode kernel) and updates that cache in place, where the
+reference donates it. Both run under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ import torch
 
 from ..configs.base import RunConfig
 from ..models.common import flatten_tree
+from ..models.attention import quantize_kv
 from ..models.transformer import Model
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 from .losses import lm_loss
 
-__all__ = ["build_train_step", "init_train_state"]
+__all__ = ["build_decode_step", "build_prefill_step", "build_train_step", "init_train_state"]
 
 _BATCH_KEYS = ("tokens", "targets", "loss_mask")
 
@@ -100,3 +106,54 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
     return train_step
+
+
+# ------------------------------------------------------------------ serving
+def _size_cache(t, s_c: int) -> torch.Tensor:
+    """(n, B, S, KVH, D) prompt K or V -> (n, B, S_c, KVH, D) decode slots:
+    positions 0..S-1 in slots 0..S-1 when they fit, else the last S_c
+    positions in the rotating-window layout ``slot = position % S_c``."""
+    s = t.shape[2]
+    out = t.new_zeros(t.shape[:2] + (s_c,) + t.shape[3:])
+    if s_c >= s:
+        out[:, :, :s] = t
+    else:
+        pos = torch.arange(s - s_c, s, device=t.device)
+        out[:, :, torch.remainder(pos, s_c)] = t[:, :, pos]
+    return out
+
+
+def build_prefill_step(model: Model, max_len: int):
+    """Full-prompt pass that builds the decode cache (sized to ``max_len``).
+
+    ``prefill(inputs) -> (logits[:, -1:], caches)``.
+    """
+    cfg = model.cfg
+
+    @torch.inference_mode()
+    def prefill(inputs: dict):
+        logits, _, caches = model(inputs, want_cache=True)
+        s_c = min(max_len, cfg.window) if cfg.window else max_len
+        sized = []
+        for cache in caches:
+            k_c, v_c = _size_cache(cache["k"], s_c), _size_cache(cache["v"], s_c)
+            if cfg.kv_cache_dtype == "int8":
+                kq, ks = quantize_kv(k_c)
+                vq, vs = quantize_kv(v_c)
+                sized.append({"k": kq, "k_scale": ks, "v": vq, "v_scale": vs})
+            else:
+                sized.append({"k": k_c, "v": v_c})
+        return logits[:, -1:], sized
+
+    return prefill
+
+
+def build_decode_step(model: Model):
+    """``decode(caches, tokens (B, 1), cache_pos) -> (logits (B, 1, V),
+    caches)``, the caches updated in place."""
+
+    @torch.inference_mode()
+    def decode(caches, tokens, cache_pos: int):
+        return model.decode_step(caches, tokens, cache_pos)
+
+    return decode

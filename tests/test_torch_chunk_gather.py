@@ -17,7 +17,7 @@ from repro_torch.kernels.chunk_gather.ref import chunk_gather_train_ref
 
 pytestmark = pytest.mark.torch_port
 
-CASES = parity.iter_cases()
+CASES = parity.iter_cases("chunk_gather_train")
 
 
 def _jax_parity():
@@ -56,16 +56,25 @@ def test_plain_version_equals_jax_kernel_exactly(case):
     _assert_equal(_port(*(np.asarray(a) for a in inputs), seq_len), want)
 
 
+def _bits(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+    a = np.asarray(t)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
 def test_port_registry_copies_reference_shapes_inputs_and_tolerance():
     jax_parity = _jax_parity()
-    ref = jax_parity.KERNELS["chunk_gather_train"]
-    mine = parity.KERNELS["chunk_gather_train"]
-    assert mine["shapes"] == ref["shapes"] and mine["tols"] == ref["tols"]
+    for name, mine in parity.KERNELS.items():
+        ref = jax_parity.KERNELS[name]
+        assert mine["shapes"] == ref["shapes"] and mine["tols"] == ref["tols"], name
     for case in parity.iter_cases():
         want = jax_parity.make_inputs(
             jax_parity.KernelCase(case.kernel, case.shape, case.dtype))
-        for got, w in zip(parity.make_inputs(case), want):
-            np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        got = parity.make_inputs(case)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_bits(g), _bits(w))
 
 
 def _edge_inputs(seq_len, lens, lp, idx, seed=0):
@@ -119,11 +128,11 @@ def test_cpu_path_does_not_count_launches():
     assert chunk_gather_train.launches == before
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(),
-                    reason="needs a CUDA card (the kernel has no CPU mode)")
 def test_cuda_kernel_equals_plain_version():
     """Needs a capability-9.0 card and nvcc."""
-    for case in parity.iter_cases() + [parity.KernelCase("chunk_gather_train",
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    for case in CASES + [parity.KernelCase("chunk_gather_train",
                                                          (8, 2048, 8), "int32")]:
         inputs = parity.make_inputs(case, device="cuda")
         before = chunk_gather_train.launches

@@ -106,3 +106,32 @@ def test_entry_points_refuse_to_run_without_a_card():
     )
     assert out.returncode != 0
     assert "CUDA" in out.stderr
+
+
+def test_port_serves_without_loading_jax():
+    script = textwrap.dedent("""
+        import sys
+        from repro_torch.launch.serve import main
+        rc = main(["--arch", "tinyllama-1.1b", "--device", "cpu", "--batch", "2",
+                   "--prompt-len", "12", "--new-tokens", "4"])
+        assert rc == 0, rc
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+        assert not leaked, leaked
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=_env(), timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "first sequence:" in out.stdout and out.stdout.strip().endswith("OK")
+
+
+def test_serve_cli_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "tinyllama-1.1b"],
+        capture_output=True, text=True, env=_env(), timeout=240, cwd=ROOT,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr
