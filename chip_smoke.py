@@ -3,20 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run (exit 1, no result lines) if it fails:
+Phases, each of which fails the run (exit 1, no result lines) if it fails,
+and each of which prints its wall time:
 
 1. environment: the card's name and power limit (nvidia-smi), versions;
-2. build: the three CUDA kernel packages (chunk_gather, flash_attention,
-   decode_attention) from the sources in this checkout, one nvcc each,
-   all started together;
+2. build: the four CUDA kernel packages (chunk_gather, flash_attention,
+   decode_attention, ssd_scan) from the sources in this checkout, one nvcc
+   each, all started together;
 3. kernel parity: every kernel against its plain PyTorch version on the
    card, over the port's parity grid, a few edge cases and the shapes the
-   main paths give it: exact for the integer gather, the registry's
+   main paths give it: exact for the two integer gathers, the registry's
    scale-normalised tolerance for the attention kernels (f32 2e-5, bf16
-   2e-2). Times each kernel, its plain version and, where one exists, the
-   PyTorch library call computing the same function on the device (a CUDA
-   graph of many calls, CUDA events), and computes its bound from the
-   inputs;
+   2e-2) and the SSD scan (f32 2e-4, bf16 5e-2). Times each kernel, its
+   plain version and, where one exists, the PyTorch library call computing
+   the same function on the device (a CUDA graph of many calls, CUDA
+   events), and computes its bound from the inputs;
 4. training main path: ``repro_torch.launch.train`` at tinyllama-1.1b
    full width (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16),
    B=8, S=2048, ``--device-path gather --remat dots`` for 6 steps. Checks
@@ -35,12 +36,25 @@ Phases, each of which fails the run (exit 1, no result lines) if it fails:
 6. small-input reference: reduced tinyllama in f32 on the card against the
    same weights on the CPU, TF32 off: logits and one train step, and
    prefill + greedy decode with a full, a rotating-window and an int8
-   cache.
+   cache; reduced zamba2 the same way, with a full cache and a window the
+   prompt overfills;
+7. hybrid serving main path: ``repro_torch.launch.serve`` at zamba2-1.2b
+   full width (38 Mamba-2 blocks, d_model 2048, 64 SSM heads of 64, state
+   64; the shared attention+MLP block, 32/32 heads, at 6 sites; vocab
+   32000, bf16), B=8, a 3584-token prompt, 512 new tokens. Checks 38
+   ssd_scan and 6 flash launches in the prefill and 6 x 511 decode
+   launches, tokens in range, finite logits, and decode step 255 against a
+   fresh prefill of its 3840 tokens: logits (scale-normalised error <= 5e-2,
+   argmax agreeing on 7 of 8 rows) and all 38 SSM and conv states, and
+   reads the states one token stale as a planted fault, which the bound
+   must catch; then profiles the prefill (ssd_scan's share of device time)
+   and 16 decode steps (the device's idle share).
 
-The last five lines are the training path's numbers as JSON, the serving
-path's, the card's name and power limit, the kernel table as JSON, and
-``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in a
-directory without the port's sources.
+The last six lines are the training path's numbers as JSON, the serving
+path's, the hybrid serving path's, the card's name and power limit, the
+kernel table as JSON (five kernels), and ``{"ok": true, "device":
+{...}}``. Exits non-zero without a card, and in a directory without the
+port's sources.
 """
 
 from __future__ import annotations
@@ -63,7 +77,9 @@ SRC = HERE / "src"
 #: data sheet), bytes/s and FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-KERNEL_PACKAGES = ("chunk_gather", "flash_attention", "decode_attention")
+#: f32 outside the tensor cores (NVIDIA data sheet, 700 W).
+F32_FLOP_PER_S = 67e12
+KERNEL_PACKAGES = ("chunk_gather", "flash_attention", "decode_attention", "ssd_scan")
 MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
              "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
              "--steps", "6"]
@@ -83,15 +99,43 @@ SMALL_INT8_TOL = 1e-3
 AGREEMENT_TOL = 5e-2
 AGREEMENT_MIN_ROWS = 7
 AGREEMENT_STEPS = (0, 42, 84, 126)
+HYBRID_ARGS = ["--arch", "zamba2-1.2b", "--full", "--batch", "8", "--prompt-len", "3584",
+               "--new-tokens", "512", "--seed", "0"]
+#: The decode step held to a fresh prefill: after it the cache holds 3840
+#: tokens, a multiple of the 256-token SSD chunk, which a prefill needs.
+HYBRID_AGREEMENT_STEP = 255
+#: Decode's SSM and conv states after that step against the fresh
+#: prefill's, per leaf the worst per-layer scale-normalised error. Reduced
+#: widths at Zamba2's depth, SSM head dim and state in bf16 reached 2.6e-2
+#: (ssm) and 8.9e-3 (conv) on the CPU over 35 tokens (tests/
+#: test_torch_serve.py::test_hybrid_decode_matches_fresh_prefill); this
+#: phase on an H100 at 3840 tokens read 4.5e-2 and 3.0e-2. The phase also
+#: reads a planted fault, decode's states one token stale (after step 254)
+#: against the same prefill, and fails unless that reading lies above the
+#: bound: the bound must tell a state that missed one token from a sound one.
+HYBRID_STATE_TOL = {"ssm": 1e-1, "conv": 5e-2}
+
+
+class PhaseClock:
+    """Prints each phase's heading and, at the next heading, its wall time."""
+
+    def __init__(self):
+        self.times: dict = {}
+        self._name, self._t0 = None, time.perf_counter()
+
+    def __call__(self, name: str | None) -> None:
+        now = time.perf_counter()
+        if self._name is not None:
+            self.times[self._name] = now - self._t0
+            print(f"-- {self._name}: {now - self._t0:.1f} s wall", flush=True)
+        self._name, self._t0 = name, now
+        if name is not None:
+            print(f"\n== {name}", flush=True)
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
 
 
 def graph_ms(fn, *, calls: int = 50, reps: int = 20) -> float:
@@ -170,32 +214,32 @@ def gather_bytes(slots, lens, idx, seq_len: int) -> tuple[int, int]:
     return b * 4 + rows.numel() * 4 + row_tokens * 4 + b * seq_len * 12, rows.numel()
 
 
-def bound(flops: float, moved: int) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the bf16
-    operations over the tensor-core rate and the bytes over the memory
-    rate, and which of the two it is."""
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+def bound(flops: float, moved: int, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the
+    operations over their peak rate (bf16 tensor cores unless given) and
+    the bytes over the memory rate, and which of the two it is."""
+    t_ops, t_bytes = flops / rate * 1e3, moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def zero_launches() -> None:
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
+def _wrappers() -> dict:
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather, chunk_gather_train
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
-    chunk_gather_train.launches = 0
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    return {"chunk_gather_train": chunk_gather_train, "chunk_gather": chunk_gather,
+            "flash_attention": flash_attention, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan}
+
+
+def zero_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-
-    return {"chunk_gather_train": chunk_gather_train.launches,
-            "flash_attention": flash_attention.launches,
-            "decode_attention": decode_attention.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 # --------------------------------------------------------------- phase 3
@@ -298,13 +342,9 @@ def check_attention_grid(device) -> None:
 
 def check_flash_main(device) -> dict:
     """flash_attention at the prefill's shapes: parity as a (BH, S, D) call,
-    timing as the GQA call the model makes."""
-    import torch
-    import torch.nn.functional as F
-
+    timing as the GQA call the model makes, at tinyllama's prefill (the
+    row's numbers) and at zamba2's (``at_hybrid_shape``)."""
     from repro_torch.kernels import parity
-    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
-    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
 
     case = parity.KernelCase("flash_attention", (256, 1920, 64, True), "bfloat16")
     inputs = parity.make_inputs(case, device=device)
@@ -314,7 +354,24 @@ def check_flash_main(device) -> dict:
         fail(f"{case.name}: err {err:.3e} > {tol}")
     print(f"{case.name}: scale-normalised err {err:.3e} (tolerance {tol})")
     del inputs
-    b, s, h, kvh, d = 8, 1920, 32, 4, 64
+    row = flash_timing(device, 8, 1920, 32, 4, calls=5)
+    hybrid = flash_timing(device, 8, 3584, 32, 32, calls=1)
+    spec = parity.KERNELS["flash_attention"]
+    return {"name": "flash_attention", "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid}
+
+
+def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls: int) -> dict:
+    """flash_attention_gqa on causal (B, S, H, D) x (B, S, KVH, D) bf16:
+    parity with its plain version, and kernel / plain / library time."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+
+    tol = parity.KERNELS["flash_attention"]["tols"]["bfloat16"]
     gen = torch.Generator(device=device).manual_seed(1)
     q = torch.randn(b, s, h, d, generator=gen, device=device).bfloat16()
     k, v = (torch.randn(b, s, kvh, d, generator=gen, device=device).bfloat16()
@@ -324,35 +381,48 @@ def check_flash_main(device) -> dict:
     err = parity.max_err(got, want)
     abs_err = float((got.float() - want.float()).abs().max())
     if not err <= tol:
-        fail(f"flash_attention_gqa at the prefill shape: err {err:.3e} > {tol}")
+        fail(f"flash_attention_gqa at {(b, s, h, kvh, d)}: err {err:.3e} > {tol}")
     del got, want
     torch.cuda.empty_cache()
     t = turns(lambda: flash_attention_gqa(q, k, v, causal=True),
               lambda: attention_gqa_ref(q, k, v, causal=True),
               lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                      enable_gqa=True),
-              calls=5, reps=5)
+              calls=calls, reps=5)
     flops = 4 * d * (s * (s + 1) // 2) * b * h  # unmasked causal pairs, QK^T and PV
     moved = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read; out written
     bound_ms, bound_by = bound(flops, moved)
     print(f"flash_attention_gqa q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: device "
-          f"time per call (CUDA graph of 5 calls): kernel {t['runs_ms'][0]:.4f} / "
+          f"time per call (CUDA graph of {calls} calls): kernel {t['runs_ms'][0]:.4f} / "
           f"{t['runs_ms'][1]:.4f} ms, plain {t['plain_runs_ms'][0]:.4f} / "
           f"{t['plain_runs_ms'][1]:.4f} ms, library (scaled_dot_product_attention) "
           f"{t['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP "
           f"at 989 TFLOP/s, {moved} bytes at 3.35 TB/s); scale-normalised err {err:.3e}, "
           f"max abs err {abs_err:.4g}")
-    spec = parity.KERNELS["flash_attention"]
-    return {"name": "flash_attention", "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
-            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": t["library_ms"], "flops": flops,
-            "bytes": moved}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"max_abs_err": abs_err, "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library_ms"],
+            "flops": flops, "bytes": moved}
 
 
 def check_decode_main(device) -> dict:
     """decode_attention at the decode's shapes with the real ring mask of
-    the last decode step (cache position 2046 of 2048 slots)."""
+    the last decode step: tinyllama's (cache position 2046 of 2048 slots;
+    the row's numbers) and zamba2's (4094 of 4096, G = 1;
+    ``at_hybrid_shape``)."""
+    from repro_torch.kernels import parity
+
+    row = decode_timing(device, 8, 32, 4, 2048)
+    hybrid = decode_timing(device, 8, 32, 32, 4096)
+    spec = parity.KERNELS["decode_attention"]
+    return {"name": "decode_attention", "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid}
+
+
+def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64) -> dict:
+    """decode_attention on a (B, S, KVH, D) bf16 cache at position S - 2:
+    parity with its plain version, and kernel / plain / library time."""
     import torch
     import torch.nn.functional as F
 
@@ -361,16 +431,15 @@ def check_decode_main(device) -> dict:
     from repro_torch.kernels.decode_attention.ref import decode_attention_plain
     from repro_torch.models.attention import slot_validity
 
-    b, h, kvh, s, d = 8, 32, 4, 2048, 64
     case = parity.KernelCase("decode_attention", (b, h, kvh, s, d), "bfloat16")
     q, ck, cv, _ = parity.make_inputs(case, device=device)
-    mask = slot_validity(2046, s, 0, device)[None, :].expand(b, s).contiguous()
+    mask = slot_validity(s - 2, s, 0, device)[None, :].expand(b, s).contiguous()
     got, want = decode_attention(q, ck, cv, mask), decode_attention_plain(q, ck, cv, mask)
     err = parity.max_err(got, want)
     abs_err = float((got.float() - want.float()).abs().max())
     tol = parity.KERNELS["decode_attention"]["tols"]["bfloat16"]
     if not err <= tol:
-        fail(f"decode_attention at the decode shape: err {err:.3e} > {tol}")
+        fail(f"decode_attention at {(b, h, kvh, s, d)}: err {err:.3e} > {tol}")
     qt = q[:, :, None, :]
     kt, vt = (x.transpose(1, 2).contiguous() for x in (ck, cv))
     amask = mask[:, None, None, :]
@@ -389,11 +458,164 @@ def check_decode_main(device) -> dict:
           f"library (scaled_dot_product_attention) {t['library_ms'] * 1e3:.2f} us; bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}: {moved} bytes at 3.35 TB/s); "
           f"scale-normalised err {err:.3e}, max abs err {abs_err:.4g}")
-    spec = parity.KERNELS["decode_attention"]
-    return {"name": "decode_attention", "route": "cuda", "source": spec["source"],
+    return {"max_abs_err": abs_err, "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library_ms"],
+            "bytes": moved}
+
+
+def check_chunk_gather_raw(device) -> dict:
+    """The raw chunk_gather against its plain version (exact) over its
+    grid and a training-sized shape (B = 8 rows of L = 2176, a slot row of
+    the trainer's S = 2048 padded to 128), timed there."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather
+    from repro_torch.kernels.chunk_gather.ref import chunk_gather_ref
+
+    main_case = parity.KernelCase("chunk_gather", (8, 2176, 8), "int32")
+    for case in parity.iter_cases("chunk_gather") + [main_case]:
+        inputs = parity.make_inputs(case, device=device)
+        got, want = parity.run_kernel(case, inputs), parity.run_ref(case, inputs)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"{case.name}: kernel disagrees with its plain version (tolerance 0)")
+        print(f"{case.name}: equal")
+    slots, lens, idx = parity.make_inputs(main_case, device=device)
+    t = turns(lambda: chunk_gather(slots, lens, idx), lambda: chunk_gather_ref(slots, lens, idx))
+    rows = torch.unique(idx.long())
+    row_len = slots.shape[1]
+    # idx read once; lens and the first min(len, L) tokens of each distinct
+    # selected row read once; (B, L) int32 tokens and f32 mask written once.
+    moved = (idx.numel() * 4 + rows.numel() * 4
+             + int(lens[rows].long().clamp(max=row_len).sum()) * 4 + idx.numel() * row_len * 8)
+    bound_ms, bound_by = bound(0, moved)
+    pairs = zip(chunk_gather(slots, lens, idx), chunk_gather_ref(slots, lens, idx))
+    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+    print(f"chunk_gather at B=8 L={row_len}: device time per call (CUDA graph of 50 calls): "
+          f"kernel {t['runs_ms'][0] * 1e3:.3f} / {t['runs_ms'][1] * 1e3:.3f} us, plain "
+          f"{t['plain_runs_ms'][0] * 1e3:.3f} / {t['plain_runs_ms'][1] * 1e3:.3f} us; bound "
+          f"{bound_ms * 1e3:.4f} us ({moved} bytes, {rows.numel()} distinct slot rows, at "
+          f"3.35 TB/s); library: none")
+    spec = parity.KERNELS["chunk_gather"]
+    return {"name": "chunk_gather", "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": 0, "main_path": None,
+            "max_abs_err": abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "bytes": moved}
+
+
+def check_ssd_grid(device) -> None:
+    """ssd_scan against its plain version over the parity grid and edge
+    cases: a chunk that does not divide the kernel's 64-step tile, a chunk
+    of 1, S not a multiple of the tile, a state that decays below 1e-30
+    within a step, and the model-layout entry with an initial state."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_heads
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_heads_ref, ssd_scan_ref
+
+    tols = parity.KERNELS["ssd_scan"]["tols"]
+    extra = [parity.KernelCase("ssd_scan", shape, dtype)
+             for shape in ((3, 100, 64, 64, 24), (2, 70, 32, 16, 1), (2, 200, 48, 40, 200))
+             for dtype in ("float32", "bfloat16")]
+    for case in parity.iter_cases("ssd_scan") + extra:
+        inputs = parity.make_inputs(case, device=device)
+        got = parity.run_kernel(case, inputs)
+        want = parity.run_ref(case, inputs)
+        torch.cuda.synchronize()
+        err = parity.max_err(got, want)
+        if not err <= tols[case.dtype] or not torch.isfinite(got.float()).all():
+            fail(f"{case.name}: kernel disagrees with its plain version "
+                 f"(scale-normalised err {err:.3e}, tolerance {tols[case.dtype]})")
+        print(f"{case.name}: scale-normalised err {err:.3e} (tolerance {tols[case.dtype]})")
+    gen = torch.Generator(device=device).manual_seed(2)
+    x, b, c = (torch.randn(2, 150, n, generator=gen, device=device) for n in (32, 16, 16))
+    dt = torch.full((2, 150), 5.0, device=device)
+    a = torch.full((2, 1), -20.0, device=device)  # exp(a dt) = 3.7e-44 per step
+    err = parity.max_err(ssd_scan(x, dt, a, b, c, chunk=64), ssd_scan_ref(x, dt, a, b, c))
+    if not err <= tols["float32"]:
+        fail(f"ssd_scan with a state decaying below 1e-30: err {err:.3e}")
+    print(f"ssd_scan, state decaying by 3.7e-44 a step: scale-normalised err {err:.3e}")
+    xh = torch.randn(2, 90, 3, 64, generator=gen, device=device)
+    dth = torch.rand(2, 90, 3, generator=gen, device=device) * 0.5 + 0.01
+    ah = -torch.rand(3, generator=gen, device=device) * 2 - 0.1
+    bh, ch = (torch.randn(2, 90, 64, generator=gen, device=device) for _ in range(2))
+    s0 = torch.randn(2, 3, 64, 64, generator=gen, device=device)
+    got = ssd_scan_heads(xh, dth, ah, bh, ch, s0)
+    err = parity.max_err(got, ssd_scan_heads_ref(xh, dth, ah, bh, ch, s0))
+    if not err <= tols["float32"]:
+        fail(f"ssd_scan_heads with an initial state: err {err:.3e}")
+    print(f"ssd_scan_heads with an initial state (y and final state): "
+          f"scale-normalised err {err:.3e} (tolerance {tols['float32']})")
+
+
+def ssd_least_work(b: int, s: int, h: int, p: int, n: int) -> int:
+    """The least FLOP of the scan, the bare recurrence: per step and head a
+    P x N outer product into the state and a P x N contraction out of it."""
+    return 4 * b * h * s * p * n
+
+
+def ssd_tile_work(b: int, s: int, h: int, p: int, n: int, tile: int = 64) -> int:
+    """FLOP of the chunked form the kernel runs, at its tile: per tile of L
+    steps, the causal half of the intra term, L(L+1)/2 (N + P)
+    multiply-adds, the inter term and the state update, 2 L N P."""
+    full, rest = divmod(s, tile)
+    per_head = sum(ln * (ln + 1) // 2 * (n + p) + 2 * ln * n * p
+                   for ln in [tile] * full + ([rest] if rest else []))
+    return 2 * b * h * per_head
+
+
+def check_ssd_main(device) -> dict:
+    """ssd_scan at the prefill's shape, as the model calls it: x, B and C
+    bf16 column slices of one conv output, dt from a softplus, A =
+    -linspace(1, 16) (the init); y and the final state held to the plain
+    version (f32 arithmetic on bf16-exact inputs: the registry's f32 2e-4)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_heads
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_heads_ref
+
+    b, s, h, p, n = 8, 3584, 64, 64, 64
+    gen = torch.Generator(device=device).manual_seed(3)
+    xbc = F.silu(torch.randn(b, s, h * p + 2 * n, generator=gen, device=device)).bfloat16()
+    xh = xbc[..., : h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+    dt = F.softplus(torch.randn(b, s, h, generator=gen, device=device))
+    a = -torch.linspace(1.0, 16.0, h, device=device)
+    got, want = ssd_scan_heads(xh, dt, a, bm, cm), ssd_scan_heads_ref(xh, dt, a, bm, cm)
+    errs = [parity.max_err(g, w) for g, w in zip(got, want)]
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tol = parity.KERNELS["ssd_scan"]["tols"]["float32"]
+    if not max(errs) <= tol or not all(torch.isfinite(g).all() for g in got):
+        fail(f"ssd_scan at the prefill shape: y err {errs[0]:.3e}, final state err "
+             f"{errs[1]:.3e} (tolerance {tol})")
+    del got, want
+    torch.cuda.empty_cache()
+    t = turns(lambda: ssd_scan_heads(xh, dt, a, bm, cm),
+              lambda: ssd_scan_heads_ref(xh, dt, a, bm, cm), calls=1, reps=3)
+    flops, tile_flops = ssd_least_work(b, s, h, p, n), ssd_tile_work(b, s, h, p, n)
+    # x, B, C read once (bf16); dt (f32) and A once; y (f32) and the final
+    # state (f32) written once.
+    moved = (xh.numel() + bm.numel() + cm.numel()) * 2 + dt.numel() * 4 + a.numel() * 4 \
+        + xh.numel() * 4 + b * h * p * n * 4
+    bound_ms, bound_by = bound(flops, moved, F32_FLOP_PER_S)
+    print(f"ssd_scan_heads xh {tuple(xh.shape)} bf16 (strided), B/C {tuple(bm.shape)}: "
+          f"y err {errs[0]:.3e}, final state err {errs[1]:.3e} (tolerance {tol}), max abs err "
+          f"{abs_err:.4g}; device time per call (CUDA graph of 1 call): kernel "
+          f"{t['runs_ms'][0]:.4f} / {t['runs_ms'][1]:.4f} ms, plain "
+          f"{t['plain_runs_ms'][0]:.2f} / {t['plain_runs_ms'][1]:.2f} ms; "
+          f"library: none; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP of the bare "
+          f"recurrence at 67 TFLOP/s f32, {moved} bytes at 3.35 TB/s); the chunked form at "
+          f"the kernel's 64-step tile does {tile_flops:.4g} FLOP")
+    spec = parity.KERNELS["ssd_scan"]
+    return {"name": "ssd_scan", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
-            "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": t["library_ms"], "bytes": moved}
+            "max_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "flops": flops, "tile_flops": tile_flops, "bytes": moved}
 
 
 # --------------------------------------------------------------- phase 4
@@ -604,6 +826,91 @@ def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
     return out
 
 
+def hybrid_path(argv) -> tuple[dict, dict]:
+    """Drive ``repro_torch.launch.serve`` on zamba2 with ``argv``; check it;
+    return its numbers and the run's summary (counts zeroed just before)."""
+    import torch
+
+    from repro_torch.launch.serve import build_parser, prefill_agreement, serve
+
+    args = build_parser().parse_args(argv)
+    steps = args.new_tokens - 1
+    step = HYBRID_AGREEMENT_STEP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    summary = serve(args, keep_logits=(step,), keep_states=(step - 1, step))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = summary["model"].cfg
+    kinds = [kind for kind, _ in cfg.segments()]
+    mamba = sum(count for kind, count in cfg.segments() if kind == "mamba2")
+    sites = kinds.count("shared_attn")
+    print(f"launches {launches}; params {summary['params']:,d} (cfg.param_count() "
+          f"{cfg.param_count():,d}); prefill {summary['prefill_s']:.4f} s; decode "
+          f"{summary['decode_s']:.4f} s for {steps} steps, {summary['decode_tok_s']:.1f} tok/s "
+          f"(all steps), {summary['steady_decode_tok_s']:.1f} tok/s (steps 2-{steps}); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    want = {"ssd_scan": mamba, "flash_attention": sites, "decode_attention": sites * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times, expected {n}")
+    tokens = summary["tokens"]
+    if tokens.shape != (args.batch, args.new_tokens) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        fail(f"tokens {tuple(tokens.shape)} out of shape or range [0, {cfg.vocab_size})")
+    if not all(bool(torch.isfinite(x).all())
+               for x in (summary["prefill_logits"], summary["logits"][step])):
+        fail("a kept logit is not finite")
+    (row,) = prefill_agreement(summary, (step,))
+    # The planted fault: step - 1's states held to the same fresh prefill.
+    (stale,) = prefill_agreement({**summary, "states": {step: summary["states"][step - 1]}},
+                                 (step,))
+    row["stale_state_err"] = stale["state_err"]
+    print(f"decode step {step} vs a fresh prefill of {args.prompt_len + step + 1} tokens: "
+          f"logits scale-normalised err {row['err']:.3e} (tolerance {AGREEMENT_TOL}), argmax "
+          f"agrees on {row['argmax_agree']}/{row['rows']} rows (at least {AGREEMENT_MIN_ROWS}); "
+          f"{mamba} SSM states err {row['state_err']['ssm']:.3e} (tolerance "
+          f"{HYBRID_STATE_TOL['ssm']}), conv states err {row['state_err']['conv']:.3e} "
+          f"(tolerance {HYBRID_STATE_TOL['conv']}); planted fault, the states one token "
+          f"stale: SSM err {stale['state_err']['ssm']:.3e}, conv err "
+          f"{stale['state_err']['conv']:.3e}")
+    if not all(stale["state_err"][k] > tol for k, tol in HYBRID_STATE_TOL.items()):
+        fail("the state bound does not tell a state one token stale from a sound one")
+    if not (row["err"] <= AGREEMENT_TOL and row["argmax_agree"] >= AGREEMENT_MIN_ROWS
+            and all(row["state_err"][k] <= tol for k, tol in HYBRID_STATE_TOL.items())):
+        fail(f"decode step {step} disagrees with a fresh prefill")
+    print("first sequence:", tokens[0, :16].tolist(), "...")
+    summary.pop("states")
+    run = {"launches": {k: launches[k] for k in want}, "params": summary["params"],
+           "param_count": cfg.param_count(), "prefill_s": summary["prefill_s"],
+           "decode_s": summary["decode_s"], "decode_tok_s": summary["decode_tok_s"],
+           "steady_decode_tok_s": summary["steady_decode_tok_s"],
+           "max_memory_allocated_gib": peak / 2**30, "agreement": row}
+    return run, summary
+
+
+def where_prefill_time_goes(summary) -> dict:
+    """Profile one prefill of the served model's prompts: ssd_scan's share
+    of device time and its time per launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train.train_step import build_prefill_step
+
+    model = summary["model"]
+    prompts = summary["prompts"].to(model.device)
+    prefill = build_prefill_step(model, summary["max_len"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.prefill"):
+            pass
+        prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+    print("prefill:")
+    return device_profile(prof, "chip_smoke.prefill", "ssd_scan_kernel", 1)
+
+
 # --------------------------------------------------------------- phase 6
 def small_reference(device) -> None:
     """Reduced tinyllama in f32 on ``device`` against the same weights on
@@ -647,12 +954,12 @@ def small_reference(device) -> None:
             fail(f"{device} disagrees with the CPU on the reduced model")
 
 
-def small_serving(device) -> list:
-    """Reduced tinyllama in f32: prefill + 12 greedy decode steps on
+def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
+    """Reduced ``arch`` in f32: prefill + 12 greedy decode steps on
     ``device`` against the same weights on the CPU, with a full cache, a
-    16-slot rotating window that the 24-token prompt overfills, and an
-    int8 cache. Tokens equal; logits within SMALL_TOL (SMALL_INT8_TOL for
-    int8)."""
+    16-slot rotating window that the 24-token prompt overfills, and (for
+    tinyllama) an int8 cache. Tokens equal; logits within SMALL_TOL
+    (SMALL_INT8_TOL for int8)."""
     import numpy as np
     import torch
 
@@ -660,11 +967,12 @@ def small_serving(device) -> list:
     from repro_torch.models import build_model
     from repro_torch.train.train_step import build_decode_step, build_prefill_step
 
-    variants = (("full", {}, 16, 29), ("window", {"window": 16}, 24, 37),
-                ("int8", {"kv_cache_dtype": "int8"}, 16, 29))
+    variants = (("full", {}, 16, 29), ("window", {"window": 16}, 24, 37))
+    if arch == "tinyllama-1.1b":
+        variants += (("int8", {"kv_cache_dtype": "int8"}, 16, 29),)
     out = []
     for name, changes, prompt_len, max_len in variants:
-        cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), **changes)
+        cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
         cpu_model = build_model(cfg, device="cpu").init(0)
         prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, prompt_len))
         results = []
@@ -686,11 +994,12 @@ def small_serving(device) -> list:
         (tc, lc), (tg, lg) = results
         err = max(float((g - c).abs().max() / c.abs().max()) for g, c in zip(lg, lc))
         tol = SMALL_INT8_TOL if name == "int8" else SMALL_TOL
-        print(f"serving {name}: {len(lg)} logits (prefill + {len(lg) - 1} decode steps), "
-              f"max err {err:.3e} (tolerance {tol}); tokens equal: {torch.equal(tc, tg)}")
+        print(f"{arch} serving {name}: {len(lg)} logits (prefill + {len(lg) - 1} decode "
+              f"steps), max err {err:.3e} (tolerance {tol}); tokens equal: "
+              f"{torch.equal(tc, tg)}")
         if not torch.equal(tc, tg) or not err <= tol:
-            fail(f"{device} disagrees with the CPU on reduced serving ({name})")
-        out.append({"variant": name, "err": err})
+            fail(f"{device} disagrees with the CPU on reduced {arch} serving ({name})")
+        out.append({"arch": arch, "variant": name, "err": err})
     return out
 
 
@@ -722,6 +1031,7 @@ def main() -> int:
 
     from repro_torch.kernels.common import resolve_device
 
+    phase = PhaseClock()
     # ------------------------------------------------------------ 1. env
     phase("1. environment")
     smi = subprocess.run(
@@ -746,10 +1056,13 @@ def main() -> int:
 
     # ------------------------------------------------- 3. kernel parity
     phase("3. kernel parity (CUDA kernels vs plain PyTorch on the card)")
-    kernels = {"chunk_gather_train": check_chunk_gather(device)}
+    kernels = {"chunk_gather_train": check_chunk_gather(device),
+               "chunk_gather": check_chunk_gather_raw(device)}
     check_attention_grid(device)
     kernels["flash_attention"] = check_flash_main(device)
     kernels["decode_attention"] = check_decode_main(device)
+    check_ssd_grid(device)
+    kernels["ssd_scan"] = check_ssd_main(device)
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 4. training path
@@ -765,8 +1078,6 @@ def main() -> int:
     # ------------------------------------------------- 5. serving path
     phase("5. serving main path: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     serve_run, summary = serve_path(SERVE_ARGS)
-    for name in ("flash_attention", "decode_attention"):
-        kernels[name]["launches"] = serve_run["launches"][name]
 
     phase("5b. where decode's device time goes (torch.profiler)")
     serve_run["decode_profile"] = where_decode_time_goes(summary)
@@ -774,13 +1085,36 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -------------------------------------- 6. small-input reference check
-    phase("6. reduced tinyllama f32: card vs CPU on the same weights")
+    phase("6. reduced tinyllama and zamba2 f32: card vs CPU on the same weights")
     small_reference(device)
     serve_run["small_serving"] = small_serving(device)
+    small_hybrid = small_serving(device, "zamba2-1.2b")
+
+    # ---------------------------------------------- 7. hybrid serving path
+    phase("7. hybrid serving main path: repro_torch.launch.serve " + " ".join(HYBRID_ARGS))
+    hybrid_run, summary = hybrid_path(HYBRID_ARGS)
+    hybrid_run["small_serving"] = small_hybrid
+
+    phase("7b. where the hybrid's prefill and decode device time goes (torch.profiler)")
+    hybrid_run["prefill_profile"] = where_prefill_time_goes(summary)
+    hybrid_run["decode_profile"] = where_decode_time_goes(summary)
+    del summary
+    torch.cuda.empty_cache()
+    phase(None)
+
+    # Launches in the main paths' runs: flash and decode run in both serving
+    # paths, ssd_scan in the hybrid's; the raw gather is on no path.
+    by_path = {"serve_path": serve_run["launches"], "hybrid_path": hybrid_run["launches"]}
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+        counts = {path: launches[name] for path, launches in by_path.items() if name in launches}
+        kernels[name]["launches"] = sum(counts.values())
+        kernels[name]["launches_by_path"] = counts
 
     # ----------------------------------------------------------- result
+    print(f"phase wall times, s: {json.dumps({k: round(v, 1) for k, v in phase.times.items()})}")
     print(json.dumps({"main_path": run}))
     print(json.dumps({"serve_path": serve_run}))
+    print(json.dumps({"hybrid_path": hybrid_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

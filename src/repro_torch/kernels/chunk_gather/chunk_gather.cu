@@ -1,6 +1,7 @@
-// chunk_gather_train for Hopper (sm_90a): redirected training-batch assembly.
+// chunk_gather_train and chunk_gather for Hopper (sm_90a): redirected
+// batch assembly.
 //
-// Replaces the Pallas kernel `chunk_gather_train` in
+// chunk_gather_train replaces the Pallas kernel `chunk_gather_train` in
 // src/repro/kernels/chunk_gather/chunk_gather.py (body `_train_kernel`).
 // For each output row i it reads slot row s = idx[i] of the slot buffer
 // (U, Lp) and its length n = lens[s], and writes
@@ -26,6 +27,14 @@
 // A slot index outside [0, num_slots) is validated on the host before the
 // copy to the device; the kernel still refuses to read through one and
 // writes a padded, fully masked row instead.
+
+// chunk_gather replaces the raw Pallas gather `chunk_gather` in the same
+// file (body `_kernel`): for output row i, slot s = idx[i], n = lens[s],
+//   tokens[i, p] = p < n ? row[p] : pad_id,   mask[i, p] = p < n ? 1 : 0
+// for p < L, the slot row's length. It is memory- and launch-bound like
+// the training gather, and built the same way: one block row per output
+// row, threads striding over L with coalesced scalar int32 loads, and the
+// same refusal to read through an index outside [0, num_slots).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +64,42 @@ __global__ void __launch_bounds__(kThreads) chunk_gather_train_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) chunk_gather_kernel(
+    const int32_t* __restrict__ slots, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ idx, int32_t* __restrict__ tokens,
+    float* __restrict__ mask, int num_slots, int row_len, int pad_id) {
+  const int row = blockIdx.y;
+  const int slot = idx[row];
+  const bool in_range = slot >= 0 && slot < num_slots;
+  const int n = in_range ? lens[slot] : 0;
+  const int32_t* src = slots + static_cast<int64_t>(in_range ? slot : 0) * row_len;
+  const int64_t out = static_cast<int64_t>(row) * row_len;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < row_len;
+       p += gridDim.x * blockDim.x) {
+    const bool ok = p < n;
+    tokens[out + p] = ok ? src[p] : pad_id;
+    mask[out + p] = ok ? 1.0f : 0.0f;
+  }
+}
+
+dim3 gather_grid(int row_len, int batch) {
+  const int tiles = (row_len + kThreads - 1) / kThreads;
+  return dim3(tiles < 64 ? tiles : 64, batch);
+}
+
 }  // namespace
+
+extern "C" int chunk_gather_launch(const void* slots, const void* lens, const void* idx,
+                                   void* tokens, void* mask, int num_slots, int batch,
+                                   int row_len, int pad_id, void* stream) {
+  if (batch == 0 || row_len == 0) return static_cast<int>(cudaSuccess);
+  chunk_gather_kernel<<<gather_grid(row_len, batch), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(idx), static_cast<int32_t*>(tokens),
+      static_cast<float*>(mask), num_slots, row_len, pad_id);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int chunk_gather_train_launch(const void* slots, const void* lens,
                                          const void* idx, void* tokens,
@@ -63,9 +107,7 @@ extern "C" int chunk_gather_train_launch(const void* slots, const void* lens,
                                          int num_slots, int batch, int seq_len,
                                          int lp, int pad_id, void* stream) {
   if (batch == 0 || seq_len == 0) return static_cast<int>(cudaSuccess);
-  const int tiles = (seq_len + kThreads - 1) / kThreads;
-  const dim3 grid(tiles < 64 ? tiles : 64, batch);
-  chunk_gather_train_kernel<<<grid, kThreads, 0,
+  chunk_gather_train_kernel<<<gather_grid(seq_len, batch), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(slots), static_cast<const int32_t*>(lens),
       static_cast<const int32_t*>(idx), static_cast<int32_t*>(tokens),

@@ -1,9 +1,10 @@
-"""The ``chunk_gather_train`` wrapper (``repro/kernels/chunk_gather/ops.py``).
+"""The ``chunk_gather_train`` and ``chunk_gather`` wrappers
+(``repro/kernels/chunk_gather/ops.py``).
 
-On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
-launches the kernel in ``chunk_gather.cu`` on the current stream, or
-raises. ``chunk_gather_train.launches`` counts kernel launches, and only
-those.
+On CPU tensors they run the plain versions (``ref.py``); on CUDA tensors
+they launch the kernels in ``chunk_gather.cu`` on the current stream, or
+raise. ``chunk_gather_train.launches`` and ``chunk_gather.launches``
+count each kernel's launches, and only those.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import torch
 
 from .. import build
 from ..common import resolve_device
-from .ref import chunk_gather_train_ref
+from .ref import chunk_gather_ref, chunk_gather_train_ref
 
-__all__ = ["check_indices", "chunk_gather_train"]
+__all__ = ["check_indices", "chunk_gather", "chunk_gather_train"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,6 +30,9 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.chunk_gather_error_string.argtypes = [ctypes.c_int]
         lib.chunk_gather_error_string.restype = ctypes.c_char_p
+        raw = lib.chunk_gather_launch
+        raw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        raw.restype = ctypes.c_int
     return lib
 
 
@@ -47,7 +51,8 @@ def check_indices(indices, num_slots: int) -> None:
         )
 
 
-def _check(chunk_tokens, record_lens, indices, seq_len: int) -> None:
+def _check(chunk_tokens, record_lens, indices, seq_len: int | None) -> None:
+    """Types, shapes and devices; ``seq_len`` None for the raw gather."""
     for name, t in (("chunk_tokens", chunk_tokens), ("record_lens", record_lens),
                     ("indices", indices)):
         if not isinstance(t, torch.Tensor):
@@ -64,6 +69,8 @@ def _check(chunk_tokens, record_lens, indices, seq_len: int) -> None:
     if record_lens.shape[0] != chunk_tokens.shape[0]:
         raise ValueError(f"record_lens {tuple(record_lens.shape)} does not match "
                          f"{chunk_tokens.shape[0]} slots")
+    if seq_len is None:
+        return
     if chunk_tokens.shape[1] < seq_len + 1:
         raise ValueError(f"slot rows of {chunk_tokens.shape[1]} < seq_len + 1 = "
                          f"{seq_len + 1}")
@@ -110,3 +117,39 @@ def chunk_gather_train(chunk_tokens, record_lens, indices, *, seq_len, pad_id=0)
 
 
 chunk_gather_train.launches = 0
+
+
+def chunk_gather(chunk_tokens, record_lens, indices, *, pad_id=0):
+    """The raw redirected gather: the selected slot rows, padded past each
+    record's length. ``chunk_tokens`` (U, L) int32, ``record_lens`` (U,)
+    int32, ``indices`` (B,) int32. Returns ``(tokens (B, L) int32,
+    mask (B, L) f32)``, the mask 1 where ``pos < record_lens[idx]``. The
+    index check is ``chunk_gather_train``'s: raised on the host for CPU
+    tensors; on CUDA the kernel pads a row it cannot read.
+    """
+    _check(chunk_tokens, record_lens, indices, None)
+    device = chunk_tokens.device
+    if device.type == "cpu":
+        check_indices(indices, chunk_tokens.shape[0])
+        return chunk_gather_ref(chunk_tokens, record_lens, indices, pad_id=pad_id)
+    resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
+    b, (u, row_len) = indices.shape[0], chunk_tokens.shape
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
+    tokens = torch.empty((b, row_len), dtype=torch.int32, device=device)
+    mask = torch.empty((b, row_len), dtype=torch.float32, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.chunk_gather_launch(
+            chunk_tokens.data_ptr(), record_lens.data_ptr(), indices.data_ptr(),
+            tokens.data_ptr(), mask.data_ptr(), u, b, row_len, int(pad_id), stream,
+        )
+    if rc != 0:
+        raise RuntimeError("chunk_gather launch failed: "
+                           + lib.chunk_gather_error_string(rc).decode())
+    chunk_gather.launches += 1
+    return tokens, mask
+
+
+chunk_gather.launches = 0

@@ -1,7 +1,7 @@
 """Kernel-vs-plain parity registry for the port's CUDA kernels.
 
-The counterpart of ``repro/kernels/parity.py``, for the kernels ported so
-far. Each entry carries the reference registry's shape grid and
+The counterpart of ``repro/kernels/parity.py``, for all five kernels.
+Each entry carries the reference registry's shape grid and
 per-dtype tolerance (copied, not imported: the port does not import the
 JAX package), its deterministic input generator (same seeding, same
 draws), and the kernel and its plain PyTorch version. Errors are the
@@ -19,13 +19,15 @@ import zlib
 import numpy as np
 import torch
 
-from .chunk_gather.ops import chunk_gather_train
-from .chunk_gather.ref import chunk_gather_train_ref
+from .chunk_gather.ops import chunk_gather, chunk_gather_train
+from .chunk_gather.ref import chunk_gather_ref, chunk_gather_train_ref
 from .common import round_up
 from .decode_attention.ops import decode_attention
 from .decode_attention.ref import decode_attention_plain
 from .flash_attention.ops import flash_attention
 from .flash_attention.ref import attention_ref
+from .ssd_scan.ops import ssd_scan
+from .ssd_scan.ref import ssd_scan_ref
 
 __all__ = ["KERNELS", "KernelCase", "iter_cases", "make_inputs", "max_err", "run_kernel",
            "run_ref"]
@@ -69,6 +71,24 @@ KERNELS: dict[str, dict] = {
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:63",
         "source": "src/repro_torch/kernels/decode_attention/decode_attention.cu",
     },
+    "ssd_scan": {
+        # (bh, s, p, n, chunk)
+        "shapes": [
+            (4, 256, 64, 16, 64),
+            (2, 128, 32, 32, 32),
+            (1, 512, 64, 64, 128),
+        ],
+        "tols": {"float32": 2e-4, "bfloat16": 5e-2},
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
+        "source": "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+    },
+    "chunk_gather": {
+        # (num_slots, L, B)
+        "shapes": [(64, 128, 16), (32, 256, 8), (16, 64, 32), (128, 512, 4)],
+        "tols": {"int32": 0.0},
+        "replaces": "src/repro/kernels/chunk_gather/chunk_gather.py:59",
+        "source": "src/repro_torch/kernels/chunk_gather/chunk_gather.cu",
+    },
     "chunk_gather_train": {
         # (num_slots, seq_len, B); slot rows padded like the reference's cases
         "shapes": [(64, 128, 16), (32, 100, 8), (16, 64, 32)],
@@ -111,6 +131,23 @@ def make_inputs(case: KernelCase, seed: int = 0, *, device="cpu", row_pad: int =
         b, h, kvh, s, d = case.shape
         q, ck, cv = normal(b, h, d), normal(b, s, kvh, d), normal(b, s, kvh, d)
         return q, ck, cv, torch.as_tensor(rng.random((b, s)) < 0.75, device=device)
+    if case.kernel == "ssd_scan":
+        dt = getattr(torch, case.dtype)
+        bh, s, p, n, _ = case.shape
+        x = torch.as_tensor(rng.normal(size=(bh, s, p)), device=device).to(dt)
+        dts = torch.as_tensor(rng.random((bh, s)) * 0.5 + 0.01, device=device).float()
+        a = torch.as_tensor(-rng.random((bh, 1)) * 2 - 0.1, device=device).float()
+        b = torch.as_tensor(rng.normal(size=(bh, s, n)), device=device).to(dt)
+        c = torch.as_tensor(rng.normal(size=(bh, s, n)), device=device).to(dt)
+        return x, dts, a, b, c
+    if case.kernel == "chunk_gather":
+        slots, length, batch = case.shape
+        ct = rng.integers(1, 1000, (slots, length))
+        lens = rng.integers(1, length + 1, (slots,))
+        idx = rng.integers(0, slots, (batch,))
+        return tuple(
+            torch.as_tensor(np.asarray(a, np.int32), device=device) for a in (ct, lens, idx)
+        )
     if case.kernel == "chunk_gather_train":
         slots, seq_len, batch = case.shape
         lp = round_up(seq_len + 1, row_pad)
@@ -130,6 +167,10 @@ def run_kernel(case: KernelCase, inputs: tuple):
         return flash_attention(*inputs, causal=case.shape[3])
     if case.kernel == "decode_attention":
         return decode_attention(*inputs)
+    if case.kernel == "ssd_scan":
+        return ssd_scan(*inputs, chunk=case.shape[4])
+    if case.kernel == "chunk_gather":
+        return chunk_gather(*inputs)
     if case.kernel == "chunk_gather_train":
         return chunk_gather_train(*inputs, seq_len=case.shape[1])
     raise ValueError(f"unknown kernel {case.kernel!r}")
@@ -140,6 +181,10 @@ def run_ref(case: KernelCase, inputs: tuple):
         return attention_ref(*inputs, causal=case.shape[3])
     if case.kernel == "decode_attention":
         return decode_attention_plain(*inputs)
+    if case.kernel == "ssd_scan":
+        return ssd_scan_ref(*inputs)
+    if case.kernel == "chunk_gather":
+        return chunk_gather_ref(*inputs)
     if case.kernel == "chunk_gather_train":
         return chunk_gather_train_ref(*inputs, seq_len=case.shape[1])
     raise ValueError(f"unknown kernel {case.kernel!r}")

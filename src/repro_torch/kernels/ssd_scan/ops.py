@@ -1,0 +1,162 @@
+"""The ssd_scan wrappers (``repro/kernels/ssd_scan/ops.py``).
+
+Two entries share one kernel and one launch counter, ``ssd_scan.launches``:
+
+* :func:`ssd_scan` keeps the reference's API and layout: one head per row
+  of BH, its own B and C; returns y in ``x.dtype`` (the kernel writes f32,
+  cast after).
+* :func:`ssd_scan_heads` takes the Mamba-2 model's layout: xh (B, S, H, P)
+  (a strided view is read in place), dt (B, S, H) f32, A (H,) f32, and one
+  B and C (B, S, N) shared by every head; returns ``(y (B, S, H, P) f32,
+  final_state (B, H, P, N) f32)``, the state the decode cache starts from.
+
+On CPU tensors both run the plain sequential recurrence (``ref.py``); on
+CUDA tensors they launch the kernel in ``ssd_scan.cu`` on the current
+stream, or raise. The kernel is a forward only, so both refuse inputs that
+require grad. It tiles 64 time steps whatever ``chunk`` the caller names:
+the chunked scan computes the same function for any chunk length.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from ..common import resolve_device
+from .ref import ssd_scan_heads_ref, ssd_scan_ref
+
+__all__ = ["MAX_DIM", "ssd_scan", "ssd_scan_heads"]
+
+#: Largest head dim P and state size N the kernel holds.
+MAX_DIM = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NUM_STRIDES = 15
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:
+        # Pointers and the stream as c_void_p: never cut to 32 bits.
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_tensors(**tensors) -> torch.device:
+    device = None
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.requires_grad:
+            raise RuntimeError(f"ssd_scan has no backward; {name} requires grad "
+                               "(use the model's plain _ssd_chunked for training)")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+    return device
+
+
+def _launch(xh, dt, a, b, c, y, state0, final, a_strides) -> None:
+    """Launch on (B, S, H, P) views, y f32; ``a_strides`` = (batch, head)
+    strides of a."""
+    device = xh.device
+    resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
+    bsz, s, h, p = xh.shape
+    n = b.shape[-1]
+    if p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"head dim {p} and state {n} must be <= {MAX_DIM}")
+    if bsz > 65535:
+        raise ValueError(f"batch {bsz} exceeds the kernel's grid limit 65535")
+    for name, t in (("xh", xh), ("b", b), ("c", c), ("y", y)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must have a unit stride on its last dim")
+    strides = (*xh.stride()[:2], xh.stride(2), *dt.stride(), *a_strides,
+               *b.stride()[:2], *c.stride()[:2], *y.stride()[:3])
+    arr = (ctypes.c_longlong * _NUM_STRIDES)(*strides)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.ssd_scan_launch(
+            xh.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), state0.data_ptr() if state0 is not None else None,
+            final.data_ptr() if final is not None else None,
+            bsz, h, s, p, n, arr, _NUM_STRIDES, _DTYPES[xh.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError("ssd_scan launch failed: " + lib.ssd_scan_error_string(rc).decode())
+    ssd_scan.launches += 1
+
+
+def _check_dtypes(x, b, c, dt, a) -> None:
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b and c must all be float32 or all bfloat16, got "
+                        f"{x.dtype}, {b.dtype}, {c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"dt and a must be float32, got {dt.dtype}, {a.dtype}")
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk=128):
+    """x (BH, S, P); dt (BH, S) > 0; a (BH, 1) < 0; b/c (BH, S, N) ->
+    y (BH, S, P) in ``x.dtype``. Any S and any ``chunk >= 1``."""
+    device = _check_tensors(x=x, dt=dt, a=a, b=b, c=c)
+    _check_dtypes(x, b, c, dt, a)
+    if x.ndim != 3 or dt.ndim != 2 or a.ndim != 2 or b.ndim != 3 or c.shape != b.shape:
+        raise ValueError("expected x (BH, S, P), dt (BH, S), a (BH, 1), b/c (BH, S, N)")
+    bh, s, _ = x.shape
+    if dt.shape != (bh, s) or a.shape != (bh, 1) or b.shape[:2] != (bh, s):
+        raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if device.type == "cpu":
+        return ssd_scan_ref(x, dt, a, b, c)
+    y = torch.empty(x.shape, dtype=torch.float32, device=device)
+    # (BH, S, P) is the model layout with H = 1; a has one value per row.
+    _launch(x[:, :, None], dt[:, :, None], a, b, c, y[:, :, None], None, None,
+            (a.stride(0), 0))
+    return y.to(x.dtype)
+
+
+def ssd_scan_heads(xh, dt, a, b, c, state0=None):
+    """The model-layout scan: xh (B, S, H, P) f32 or bf16, may be a strided
+    view (unit stride on P); dt (B, S, H) f32; a (H,) f32; b/c (B, S, N),
+    xh's dtype, shared by the heads; ``state0`` (B, H, P, N) f32 or None.
+
+    Returns ``(y (B, S, H, P) f32, final_state (B, H, P, N) f32)``.
+    """
+    tensors = dict(xh=xh, dt=dt, a=a, b=b, c=c)
+    if state0 is not None:
+        tensors["state0"] = state0
+    device = _check_tensors(**tensors)
+    _check_dtypes(xh, b, c, dt, a)
+    if xh.ndim != 4 or b.ndim != 3 or c.shape != b.shape:
+        raise ValueError("expected xh (B, S, H, P), b/c (B, S, N)")
+    bsz, s, h, p = xh.shape
+    n = b.shape[-1]
+    if dt.shape != (bsz, s, h) or a.shape != (h,) or b.shape[:2] != (bsz, s):
+        raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)} "
+                         f"do not match xh {tuple(xh.shape)}")
+    if state0 is not None and (state0.shape != (bsz, h, p, n) or state0.dtype != torch.float32
+                               or not state0.is_contiguous()):
+        raise ValueError(f"state0 must be a contiguous f32 {(bsz, h, p, n)}")
+    if device.type == "cpu":
+        return ssd_scan_heads_ref(xh, dt, a, b, c, state0)
+    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=device)
+    final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=device)
+    if s == 0:  # nothing to scan: no launch
+        if state0 is None:
+            return y, final.zero_()
+        return y, final.copy_(state0)
+    _launch(xh, dt, a, b, c, y, state0, final, (0, a.stride(0)))
+    return y, final
+
+
+ssd_scan.launches = 0

@@ -2,14 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --full \
         --batch 8 --prompt-len 1920 --new-tokens 128 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \
+        --batch 8 --prompt-len 3584 --new-tokens 512 --seed 0
 
 Runs on the CUDA card by default (``--device cpu`` for the CPU, where the
 attention kernels' plain versions run); a missing or non-Hopper card is an
 error, never a silent CPU run. The prompt goes through ``build_prefill_step``
-(attention in the flash-attention kernel, the K/V sized into a decode
-cache of ``prompt_len + new_tokens`` slots), then each new token through
-``build_decode_step`` (attention in the decode-attention kernel, the
-cache updated in place). Tokens are greedy (``argmax``).
+(attention in the flash-attention kernel, a hybrid model's Mamba-2 scan in
+the ssd_scan kernel, the K/V sized into a decode cache of ``prompt_len +
+new_tokens`` slots), then each new token through ``build_decode_step``
+(attention in the decode-attention kernel, the cache and recurrent states
+updated in place). Tokens are greedy (``argmax``). A hybrid prompt must be
+at most ``ssm_chunk`` (256) tokens or a multiple of it, the reference's
+rule.
 
 ``--list-archs`` prints every registered arch with its serving capability
 and exits 0; asking to serve an encoder-only arch exits 1. An arch whose
@@ -57,7 +62,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
+def _recurrent(model, caches) -> dict:
+    """Copies of the recurrent (mamba2) cache leaves, keyed by segment."""
+    return {i: {name: t.clone() for name, t in cache.items()}
+            for i, ((kind, _), cache) in enumerate(zip(model.cfg.segments(), caches))
+            if kind == "mamba2"}
+
+
+def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     """Prefill ``args.batch`` random prompts, then decode greedily.
 
     Returns ``prompts`` (B, P) and ``tokens`` (B, new_tokens) as CPU int32
@@ -83,10 +95,12 @@ def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
     max_len = args.prompt_len + args.new_tokens
     prefill = build_prefill_step(model, max_len=max_len)
     decode = build_decode_step(model)
-    print(f"arch={args.arch} params={cfg.param_count():,d} device={device} "
-          f"batch={args.batch} prompt={args.prompt_len} new={args.new_tokens}")
+    params = sum(p.numel() for p in model.parameters())
+    print(f"arch={args.arch} params={params:,d} (cfg.param_count() {cfg.param_count():,d}) "
+          f"device={device} batch={args.batch} prompt={args.prompt_len} "
+          f"new={args.new_tokens}")
 
-    keep = set(keep_logits)
+    keep, keep_st = set(keep_logits), set(keep_states)
     inputs = {"tokens": prompts.to(device)}
     _sync(device)
     t0 = time.perf_counter()
@@ -96,7 +110,7 @@ def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
     _sync(device)
     prefill_s = time.perf_counter() - t0
     print(f"prefill {args.batch}x{args.prompt_len} in {prefill_s:.3f}s")
-    out, kept = [tok], {}
+    out, kept, states = [tok], {}, {}
     t_step1 = None
     _sync(device)
     t0 = time.perf_counter()
@@ -106,6 +120,8 @@ def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
         out.append(tok)
         if t in keep:
             kept[t] = logits[:, 0].float()
+        if t in keep_st:
+            states[t] = _recurrent(model, cache)
         if t == 0:
             _sync(device)
             t_step1 = time.perf_counter()
@@ -116,6 +132,7 @@ def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
     tokens = torch.cat(out, dim=1).cpu()
     summary = dict(
         prompts=prompts, tokens=tokens, prefill_logits=prefill_logits, logits=kept,
+        states=states, params=params,
         prefill_s=prefill_s, decode_s=decode_s,
         decode_tok_s=steps * args.batch / decode_s if steps else None,
         steady_decode_tok_s=((steps - 1) * args.batch / (t_end - t_step1)
@@ -129,6 +146,10 @@ def serve(args: argparse.Namespace, *, keep_logits=()) -> dict:
     return summary
 
 
+def _err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
 def prefill_agreement(summary: dict, steps) -> list[dict]:
     """Hold decode against prefill on one :func:`serve` run.
 
@@ -136,19 +157,31 @@ def prefill_agreement(summary: dict, steps) -> list[dict]:
     a fresh prefill over the prompt plus tokens 0..t must give, at its last
     position, the logits decode step ``t`` gave. Returns per step the
     scale-normalised max error ``max |decode - prefill| / max |prefill|``
-    and the number of rows whose argmax agrees.
+    and the number of rows whose argmax agrees. Where the run kept a hybrid
+    model's recurrent states after step ``t`` (``summary["states"]``), the
+    prefill's final states must match them too: ``state_err`` holds, per
+    leaf (``ssm``, ``conv``), the worst of the per-layer scale-normalised
+    errors.
     """
     model = summary["model"]
     device = model.device
     out = []
     for t in steps:
         seq = torch.cat([summary["prompts"], summary["tokens"][:, : t + 1]], dim=1)
-        ref, _ = build_prefill_step(model, max_len=seq.shape[1])({"tokens": seq.to(device)})
+        ref, caches = build_prefill_step(model, max_len=seq.shape[1])(
+            {"tokens": seq.to(device)})
         ref = ref[:, -1].float()
         got = summary["logits"][t]
-        err = float((got - ref).abs().max() / ref.abs().max())
         agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-        out.append({"step": t, "err": err, "argmax_agree": agree, "rows": got.shape[0]})
+        row = {"step": t, "err": _err(got, ref), "argmax_agree": agree, "rows": got.shape[0]}
+        if t in summary.get("states", {}):
+            worst: dict = {}
+            for i, leaves in summary["states"][t].items():
+                for name, kept in leaves.items():
+                    for g, r in zip(kept, caches[i][name]):
+                        worst[name] = max(worst.get(name, 0.0), _err(g, r))
+            row["state_err"] = worst
+        out.append(row)
     return out
 
 

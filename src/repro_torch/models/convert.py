@@ -7,6 +7,8 @@ directions are bit-exact. bfloat16 needs care, and no ``ml_dtypes``
 ``ml_dtypes.bfloat16`` array, a checkpointed one as raw ``|V2`` bytes;
 either is reinterpreted as 16-bit integers and viewed as
 ``torch.bfloat16``. On the way back a bf16 tensor leaves as its ``uint16`` bits.
+A hybrid tree moves the same way: its ``shared_attn`` block is one more
+subtree, and the ``{}`` placeholder at each shared site has no leaves.
 """
 
 from __future__ import annotations

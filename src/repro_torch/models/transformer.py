@@ -1,4 +1,4 @@
-"""Model assembly for the dense decoder (``repro/models/transformer.py``).
+"""Model assembly: dense and hybrid decoders (``repro/models/transformer.py``).
 
 The parameter tree is the reference's: each segment's per-layer leaves are
 stacked on a leading layers axis (``(L, d)`` norms, ``(L, in, out)``
@@ -23,8 +23,18 @@ window buffers when ``cfg.window`` is set, int8 with bf16 scales when
 every layer against it (attention through the decode-attention kernel),
 updating it in place.
 
-Only the ``attn_mlp`` block kind without a frontend is ported; the other
-kinds and the frontends raise and wait for later slices.
+The hybrid family (zamba2) is ported too: ``mamba2`` segments stack their
+leaves like any other (``ln (L, d)``, ``mixer.in_proj (L, d, e)``, ...),
+and zamba2's *shared* attention+MLP block is one unstacked parameter set
+under ``shared_attn``, applied at every ``shared_attn`` site, whose
+``segments`` entry is an empty placeholder, the reference's tree. In the
+prefill the Mamba-2 scan runs in the ``ssd_scan`` kernel and the shared
+block's attention in the flash kernel; the cache holds ``{"ssm", "conv"}``
+per Mamba segment (f32 SSM state, conv context in the compute dtype) and a
+``{"k", "v"}`` of leading axis 1 per shared site, each site its own KV.
+
+The attn_mlp, mamba2 and shared_attn block kinds without a frontend are
+ported; the other kinds and the frontends raise and wait for later slices.
 """
 
 from __future__ import annotations
@@ -38,19 +48,19 @@ from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from .attention import attention_block, decode_attention_block, init_attention
 from .common import normal_init, rms_norm
+from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
 
 __all__ = ["Model", "build_model"]
 
 #: Where each block kind that is not ported yet is queued (ROADMAP.md §1).
 _NOT_PORTED = {
-    "shared_attn": "ROADMAP.md §1 item 1 (hybrid family)",
-    "mamba2": "ROADMAP.md §1 item 1 (hybrid family)",
     "attn_dense_moe": "ROADMAP.md §1 item 3 (MoE)",
     "attn_moe": "ROADMAP.md §1 item 3 (MoE)",
     "mlstm": "ROADMAP.md §1 item 4 (xLSTM)",
     "slstm": "ROADMAP.md §1 item 4 (xLSTM)",
 }
+_PORTED = ("attn_mlp", "mamba2", "shared_attn")
 REMAT_MODES = ("none", "dots", "full")
 
 
@@ -83,11 +93,26 @@ def _decode_block(p, x, cache, cache_pos, cfg):
     return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
-def _cache_shapes(cfg, batch, max_len, cdt) -> dict:
-    """{leaf: (shape, dtype)} for one attention block's decode cache entry.
-    KV caches live in the compute dtype, or int8 with bf16 per-(token,
-    head) scales; a windowed config keeps only ``min(max_len, window)``
-    slots."""
+def _mamba2_block(p, x, cfg, want_cache=False):
+    """The pre-norm residual Mamba-2 block. Returns (x, {"ssm", "conv"})."""
+    h, st = mamba2_block(p["mixer"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+                         want_cache=want_cache)
+    return x + h, st
+
+
+def _mamba2_train_block(p, x, cfg):
+    return _mamba2_block(p, x, cfg)[0]
+
+
+def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
+    """{leaf: (shape, dtype)} for one block's decode cache entry. KV caches
+    live in the compute dtype, or int8 with bf16 per-(token, head) scales;
+    a windowed config keeps only ``min(max_len, window)`` slots. The
+    Mamba-2 state is f32 (it integrates over the whole sequence), its conv
+    context in the compute dtype."""
+    if kind == "mamba2":
+        shp = mamba2_state_shape(cfg, batch)
+        return {"ssm": (shp["ssm"], torch.float32), "conv": (shp["conv"], cdt)}
     s = min(max_len, cfg.window) if cfg.window else max_len
     shp = (batch, s, cfg.num_kv_heads, cfg.head_dim_)
     if cfg.kv_cache_dtype == "int8":
@@ -98,15 +123,17 @@ def _cache_shapes(cfg, batch, max_len, cdt) -> dict:
 
 
 class _AttnMlpSegment(nn.Module):
-    """``count`` attn_mlp blocks, every leaf stacked on a leading layers axis."""
+    """``count`` attn_mlp blocks, every leaf stacked on a leading layers
+    axis; ``count=None`` is one unstacked block (zamba2's shared block)."""
 
-    def __init__(self, count: int, cfg: ModelConfig, dtype, device):
+    def __init__(self, count: int | None, cfg: ModelConfig, dtype, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim_
         h, kvh, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+        lead = () if count is None else (count,)
 
         def empty(*shape):
-            return nn.Parameter(torch.empty((count, *shape), dtype=dtype, device=device))
+            return nn.Parameter(torch.empty((*lead, *shape), dtype=dtype, device=device))
 
         self.count = count
         self.ln1 = empty(d)
@@ -138,20 +165,70 @@ class _AttnMlpSegment(nn.Module):
     @torch.no_grad()
     def init(self, gen, cfg, dtype) -> None:
         # Per-layer draws in the reference's order (attn then mlp), stacked.
-        blocks = []
-        for _ in range(self.count):
-            attn = init_attention(gen, cfg, dtype)
-            blocks.append((attn, init_mlp(gen, cfg, dtype)))
+        # An unstacked block is one draw, its stack viewed without the axis.
+        blocks = [(init_attention(gen, cfg, dtype), init_mlp(gen, cfg, dtype))
+                  for _ in range(self.count or 1)]
         self.ln1.zero_()
         self.ln2.zero_()
         for k, p in self.attn.items():
-            p.copy_(torch.stack([a[k] for a, _ in blocks]))
+            p.copy_(torch.stack([a[k] for a, _ in blocks]).view_as(p))
         for k, p in self.mlp.items():
-            p.copy_(torch.stack([m[k] for _, m in blocks]))
+            p.copy_(torch.stack([m[k] for _, m in blocks]).view_as(p))
+
+
+class _Mamba2Segment(nn.Module):
+    """``count`` mamba2 blocks, every leaf stacked on a leading layers axis.
+
+    The per-head and per-channel leaves (``A_log``, ``dt_bias``, ``D``,
+    ``conv_b``) stack to rank 2, so AdamW decays them, as in the reference.
+    """
+
+    def __init__(self, count: int, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, k = cfg.d_model, cfg.ssm_conv
+        di, n = cfg.d_inner, cfg.ssm_state
+        heads = di // cfg.ssm_head_dim
+        conv_dim = di + 2 * n
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty((count, *shape), dtype=dtype, device=device))
+
+        self.count = count
+        self.ln = empty(d)
+        self.mixer = nn.ParameterDict({
+            "in_proj": empty(d, 2 * di + 2 * n + heads), "conv_w": empty(k, conv_dim),
+            "conv_b": empty(conv_dim), "A_log": empty(heads), "dt_bias": empty(heads),
+            "D": empty(heads), "out_proj": empty(di, d),
+        })
+
+    def values(self) -> dict:
+        return {"ln": self.ln, "mixer": dict(self.mixer)}
+
+    def layers(self) -> list[dict]:
+        """Per-layer views of the stacked leaves (``unbind(0)``)."""
+        ln = self.ln.unbind(0)
+        mixer = {k: v.unbind(0) for k, v in self.mixer.items()}
+        return [{"ln": ln[i], "mixer": {k: v[i] for k, v in mixer.items()}}
+                for i in range(self.count)]
+
+    @torch.no_grad()
+    def init(self, gen, cfg, dtype) -> None:
+        blocks = [init_mamba2(gen, cfg, dtype) for _ in range(self.count)]
+        self.ln.zero_()
+        for k, p in self.mixer.items():
+            p.copy_(torch.stack([b[k] for b in blocks]))
+
+
+class _SharedSite(nn.Module):
+    """A ``shared_attn`` site: no parameters of its own (they live in
+    ``Model.shared_attn``); its values are the reference's ``{}``."""
+
+    def values(self) -> dict:
+        return {}
 
 
 class Model(nn.Module):
-    """Dense decoder (``attn_mlp`` blocks). Parameters are allocated on
+    """Dense or hybrid decoder. Parameters are allocated on
     ``device`` but not initialised: call :meth:`init` (or load weights
     through :mod:`repro_torch.models.convert` / a checkpoint) before use,
     as the reference's ``Model(cfg)`` holds no parameters until ``init``."""
@@ -159,7 +236,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         for kind, _ in cfg.segments():
-            if kind != "attn_mlp":
+            if kind not in _PORTED:
                 raise NotImplementedError(
                     f"{cfg.name}: block kind {kind!r} is not ported yet: "
                     f"{_NOT_PORTED.get(kind, 'ROADMAP.md §1')}"
@@ -179,9 +256,18 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=dtype, device=self.device)
             )
-        self.segments = nn.ModuleList(
-            _AttnMlpSegment(count, cfg, dtype, self.device) for _, count in cfg.segments()
-        )
+        segs = []
+        for kind, count in cfg.segments():
+            if kind == "attn_mlp":
+                segs.append(_AttnMlpSegment(count, cfg, dtype, self.device))
+            elif kind == "mamba2":
+                segs.append(_Mamba2Segment(count, cfg, dtype, self.device))
+            else:
+                segs.append(_SharedSite())
+        self.segments = nn.ModuleList(segs)
+        self.shared_attn = None
+        if any(kind == "shared_attn" for kind, _ in cfg.segments()):
+            self.shared_attn = _AttnMlpSegment(None, cfg, dtype, self.device)
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
@@ -198,8 +284,13 @@ class Model(nn.Module):
             self.lm_head.copy_(
                 (torch.randn((d, v), generator=gen, device=self.device) / d**0.5).to(dtype)
             )
-        for seg in self.segments:
-            seg.init(gen, cfg, dtype)
+        shared_drawn = False
+        for (kind, _), seg in zip(cfg.segments(), self.segments):
+            if kind != "shared_attn":
+                seg.init(gen, cfg, dtype)
+            elif not shared_drawn:  # drawn at its first site, as the reference
+                self.shared_attn.init(gen, cfg, dtype)
+                shared_drawn = True
         return self
 
     def values(self) -> dict:
@@ -208,6 +299,8 @@ class Model(nn.Module):
                "segments": [seg.values() for seg in self.segments]}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
+        if self.shared_attn is not None:
+            out["shared_attn"] = self.shared_attn.values()
         return out
 
     # ---------------------------------------------------------- forward
@@ -226,8 +319,11 @@ class Model(nn.Module):
         Returns ``(logits (B, S, V), aux)``; ``aux`` is the f32 zero the
         reference returns for blocks without an auxiliary loss. With
         ``want_cache`` (prefill: no gradient, attention in the flash
-        kernel) returns ``(logits, aux, caches)``, ``caches`` one
-        ``{"k", "v"}`` dict of (L, B, S, KVH, D) stacks per segment.
+        kernel, the Mamba-2 scan in the ssd_scan kernel) returns ``(logits,
+        aux, caches)``, one entry per segment: ``{"k", "v"}`` stacks (L, B,
+        S, KVH, D) for attn_mlp, ``{"ssm", "conv"}`` stacks (L, B, H, P, N)
+        and (L, B, K-1, C) for mamba2, and an unstacked ``{"k", "v"}`` (B, S,
+        KVH, D) for a shared_attn site, as the reference's forward gives.
         """
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
@@ -235,19 +331,32 @@ class Model(nn.Module):
         x = self._embed_inputs(inputs)
         ckpt = remat != "none" and torch.is_grad_enabled()
         caches = []
-        for seg in self.segments:
-            ks, vs = [], []
+        for (kind, _), seg in zip(cfg.segments(), self.segments):
+            if kind == "shared_attn":  # applied outside the layer scan: no remat
+                p = self.shared_attn.values()
+                if want_cache:
+                    x, (k, v) = _prefill_block(p, x, cfg)
+                    caches.append({"k": k, "v": v})
+                else:
+                    x = _attn_mlp_block(p, x, cfg)
+                continue
+            block = _attn_mlp_block if kind == "attn_mlp" else _mamba2_train_block
+            entries = []
             for lp in seg.layers():
                 if want_cache:
-                    x, (k, v) = _prefill_block(lp, x, cfg)
-                    ks.append(k)
-                    vs.append(v)
+                    if kind == "attn_mlp":
+                        x, (k, v) = _prefill_block(lp, x, cfg)
+                        entries.append({"k": k, "v": v})
+                    else:
+                        x, st = _mamba2_block(lp, x, cfg, want_cache=True)
+                        entries.append(st)
                 elif ckpt:
-                    x = checkpoint(_attn_mlp_block, lp, x, cfg, use_reentrant=False)
+                    x = checkpoint(block, lp, x, cfg, use_reentrant=False)
                 else:
-                    x = _attn_mlp_block(lp, x, cfg)
+                    x = block(lp, x, cfg)
             if want_cache:
-                caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
+                caches.append({name: torch.stack([e[name] for e in entries])
+                               for name in entries[0]})
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if want_cache:
             return self._logits(x), aux, caches
@@ -256,13 +365,15 @@ class Model(nn.Module):
     # ------------------------------------------------------------ decode
     def cache_specs(self, batch: int, max_len: int, dtype=None) -> list[dict]:
         """Per segment, ``{leaf: (shape, dtype)}`` of the decode cache, each
-        shape with the segment's leading layers axis."""
+        shape with the segment's leading layers axis (1 for a shared_attn
+        site, which holds its own KV)."""
         cdt = dtype or _dtype(self.cfg.compute_dtype)
-        return [
-            {name: ((count, *shape), dt)
-             for name, (shape, dt) in _cache_shapes(self.cfg, batch, max_len, cdt).items()}
-            for _, count in self.cfg.segments()
-        ]
+        out = []
+        for kind, count in self.cfg.segments():
+            lead = 1 if kind == "shared_attn" else count
+            shapes = _cache_shapes(kind, self.cfg, batch, max_len, cdt)
+            out.append({name: ((lead, *shape), dt) for name, (shape, dt) in shapes.items()})
+        return out
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
         """Zero decode cache on the model's device (mirrors the segments)."""
@@ -278,9 +389,19 @@ class Model(nn.Module):
         and returns ``(logits (B, 1, V), caches)``."""
         cfg = self.cfg
         x = self._embed_inputs({"tokens": tokens})
-        for seg, cache in zip(self.segments, caches):
+        for (kind, _), seg, cache in zip(cfg.segments(), self.segments, caches):
+            if kind == "shared_attn":
+                x = _decode_block(self.shared_attn.values(), x,
+                                  {k: t[0] for k, t in cache.items()}, cache_pos, cfg)
+                continue
             for i, lp in enumerate(seg.layers()):
-                x = _decode_block(lp, x, {k: t[i] for k, t in cache.items()}, cache_pos, cfg)
+                layer_cache = {k: t[i] for k, t in cache.items()}
+                if kind == "mamba2":
+                    h, _ = mamba2_decode(lp["mixer"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                                         layer_cache, cfg)
+                    x = x + h
+                else:
+                    x = _decode_block(lp, x, layer_cache, cache_pos, cfg)
         return self._logits(x), caches
 
 

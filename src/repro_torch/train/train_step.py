@@ -13,10 +13,11 @@ its first axis and accumulates gradients in the parameter dtype, or in
 ``grad_allreduce_dtype`` when one is set, as the reference's scan does.
 
 ``build_prefill_step`` / ``build_decode_step`` are the serving programs:
-prefill runs the prompt through the model (attention in the flash kernel)
-and sizes its K/V into the decode cache; decode runs one token (attention
-in the decode kernel) and updates that cache in place, where the
-reference donates it. Both run under ``torch.inference_mode()``.
+prefill runs the prompt through the model (attention in the flash kernel,
+the Mamba-2 scan in the ssd_scan kernel) and sizes its K/V into the decode
+cache; decode runs one token (attention in the decode kernel) and updates
+that cache, K/V and recurrent states alike, in place, where the reference
+donates it. Both run under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -126,7 +127,10 @@ def _size_cache(t, s_c: int) -> torch.Tensor:
 def build_prefill_step(model: Model, max_len: int):
     """Full-prompt pass that builds the decode cache (sized to ``max_len``).
 
-    ``prefill(inputs) -> (logits[:, -1:], caches)``.
+    ``prefill(inputs) -> (logits[:, -1:], caches)``. Attention K/V are sized
+    into decode slots (a shared_attn site's gaining its leading axis 1 and
+    int8 applying where configured); a recurrent state is already the
+    cache and passes through.
     """
     cfg = model.cfg
 
@@ -135,7 +139,12 @@ def build_prefill_step(model: Model, max_len: int):
         logits, _, caches = model(inputs, want_cache=True)
         s_c = min(max_len, cfg.window) if cfg.window else max_len
         sized = []
-        for cache in caches:
+        for (kind, _), cache in zip(cfg.segments(), caches):
+            if kind not in ("attn_mlp", "shared_attn"):
+                sized.append(cache)  # recurrent state is already the cache
+                continue
+            if kind == "shared_attn":
+                cache = {name: t[None] for name, t in cache.items()}
             k_c, v_c = _size_cache(cache["k"], s_c), _size_cache(cache["v"], s_c)
             if cfg.kv_cache_dtype == "int8":
                 kq, ks = quantize_kv(k_c)

@@ -1,5 +1,6 @@
-"""chunk_gather_train in the port: plain version vs the JAX kernel, checks,
-and (with a card) the CUDA kernel vs the plain version.
+"""chunk_gather_train and the raw chunk_gather in the port: plain versions
+vs the JAX kernels, checks, and (with a card) the CUDA kernels vs the plain
+versions.
 
 Tolerance: exact. The function is integer batch assembly; the JAX kernel
 runs in interpret mode on the CPU, as the JAX package's own tests run it.
@@ -12,12 +13,17 @@ import pytest
 import torch
 
 from repro_torch.kernels import parity
-from repro_torch.kernels.chunk_gather.ops import check_indices, chunk_gather_train
-from repro_torch.kernels.chunk_gather.ref import chunk_gather_train_ref
+from repro_torch.kernels.chunk_gather.ops import (
+    check_indices,
+    chunk_gather,
+    chunk_gather_train,
+)
+from repro_torch.kernels.chunk_gather.ref import chunk_gather_ref, chunk_gather_train_ref
 
 pytestmark = pytest.mark.torch_port
 
 CASES = parity.iter_cases("chunk_gather_train")
+RAW_CASES = parity.iter_cases("chunk_gather")
 
 
 def _jax_parity():
@@ -141,4 +147,64 @@ def test_cuda_kernel_equals_plain_version():
         assert chunk_gather_train.launches == before + 1
         want = chunk_gather_train_ref(*inputs, seq_len=case.shape[1])
         for g, w in zip(got, want):
+            assert torch.equal(g, w), case.name
+
+
+# --------------------------------------------------------------- raw gather
+def _jax_raw(ct, lens, idx, pad_id=0):
+    pytest.importorskip("jax")
+    from repro.kernels.chunk_gather.ops import chunk_gather as jax_chunk_gather
+
+    return [np.asarray(o) for o in jax_chunk_gather(ct, lens, idx, pad_id=pad_id,
+                                                    interpret=True)]
+
+
+def _port_raw(ct, lens, idx, pad_id=0):
+    t = [torch.from_numpy(np.array(a, np.int32)) for a in (ct, lens, idx)]
+    return [o.numpy() for o in chunk_gather(*t, pad_id=pad_id)]
+
+
+@pytest.mark.parametrize("case", RAW_CASES, ids=lambda c: c.name)
+def test_raw_plain_version_equals_jax_kernel_exactly(case):
+    jax_parity = _jax_parity()
+    inputs = jax_parity.make_inputs(jax_parity.KernelCase(case.kernel, case.shape, case.dtype))
+    want = _jax_raw(*inputs)
+    _assert_equal(_port_raw(*(np.asarray(a) for a in inputs)), want)
+
+
+@pytest.mark.parametrize(
+    "name,lens,length,idx,pad_id",
+    [
+        ("duplicate_indices", [5, 12, 9], 12, [2, 2, 0, 2, 1, 0], 0),
+        ("len_one_and_full", [1, 16, 1, 16], 16, [0, 1, 2, 3], 0),
+        ("pad_id_nonzero", [3, 9], 9, [1, 0, 1], 7),
+    ],
+)
+def test_raw_edge_cases_match_jax(name, lens, length, idx, pad_id):
+    ct, ln, ix = _edge_inputs(length, lens, length, idx)
+    _assert_equal(_port_raw(ct, ln, ix, pad_id), _jax_raw(ct, ln, ix, pad_id))
+
+
+def test_raw_out_of_range_index_raises_and_counts_no_launch():
+    ct, ln, ix = _edge_inputs(8, [3, 8], 8, [0, 2])
+    with pytest.raises(IndexError, match="out of range"):
+        _port_raw(ct, ln, ix)
+    before = chunk_gather.launches
+    _port_raw(ct, ln, np.asarray([1, 0], np.int32))
+    assert chunk_gather.launches == before
+    with pytest.raises(TypeError, match="int32"):
+        chunk_gather(*(torch.from_numpy(a).long() for a in (ct, ln, ix)))
+
+
+def test_raw_cuda_kernel_equals_plain_version():
+    """Needs a capability-9.0 card and nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    for case in RAW_CASES + [parity.KernelCase("chunk_gather", (8, 2176, 8), "int32")]:
+        inputs = parity.make_inputs(case, device="cuda")
+        before = chunk_gather.launches
+        got = parity.run_kernel(case, inputs)
+        torch.cuda.synchronize()
+        assert chunk_gather.launches == before + 1
+        for g, w in zip(got, chunk_gather_ref(*inputs)):
             assert torch.equal(g, w), case.name

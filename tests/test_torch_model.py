@@ -208,6 +208,63 @@ def test_bridge_round_trip_is_bit_exact(cfg, dtype):
 
 def test_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(get_config("zamba2-1.2b")), device="cpu")
+        build_model(reduced(get_config("xlstm-350m")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(reduced(get_config("llava-next-34b")), device="cpu")
+
+
+# ------------------------------------------------------------------ hybrid
+@pytest.fixture(scope="module")
+def hcfg():
+    return reduced(get_config("zamba2-1.2b"))
+
+
+def test_hybrid_tree_and_state_dict_names(hcfg):
+    """The reference's tree: stacked Mamba-2 segments, ``{}`` at each shared
+    site, one unstacked ``shared_attn`` block; parameters counted as the
+    leaves hold them."""
+    from repro_torch.models.common import flatten_tree
+
+    model = build_model(hcfg, device="cpu")
+    jvalues = _jax_values(hcfg)
+    assert [bool(seg) for seg in jvalues["segments"]] == [True, False, True, False]
+    assert model.values()["segments"][1] == {} and "shared_attn" in model.values()
+    names = {k.replace(".", "/") for k in model.state_dict()}
+    assert names == set(flatten_tree(jvalues))
+    assert model.shared_attn.attn["wq"].shape == (hcfg.d_model, hcfg.num_heads * 32)
+    assert model.segments[0].mixer["A_log"].shape == (2, hcfg.d_inner // hcfg.ssm_head_dim)
+    real = sum(p.numel() for p in model.parameters())
+    assert real == sum(np.asarray(v).size for v in jax.tree_util.tree_leaves(jvalues))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_bridge_round_trip_is_bit_exact(hcfg, dtype):
+    c = dataclasses.replace(hcfg, param_dtype=dtype, compute_dtype=dtype)
+    values = _jax_values(c, seed=4)
+    model = _port_model(c, values)
+    back = values_to_numpy(model)
+    assert back["segments"][1] == {} and back["segments"][3] == {}
+    flat_in = jax.tree_util.tree_leaves(values)
+    flat_out = jax.tree_util.tree_leaves(back)
+    assert len(flat_in) == len(flat_out) == len(model.state_dict())
+    for a, b in zip(flat_in, flat_out):
+        if dtype == "bfloat16":
+            assert a.dtype == ml_dtypes.bfloat16 and b.dtype == np.uint16
+            a = a.view(np.uint16)
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_hybrid_forward_logits(hcfg, remat):
+    """The training route: plain chunked scan (chunk 16 divides S = 32) and
+    the shared block's dense attention, with and without per-layer remat."""
+    c = dataclasses.replace(hcfg, ssm_chunk=16)
+    values = _jax_values(c, seed=2)
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, c.vocab_size, (2, 32)).astype(np.int32)
+    want, _, _ = jbuild(c).forward(jax.tree.map(jnp.asarray, values),
+                                   {"tokens": jnp.asarray(tokens)})
+    model = _port_model(c, values)
+    got, aux = model({"tokens": t(tokens)}, remat=remat)
+    assert got.shape == (2, 32, c.vocab_size) and float(aux) == 0.0
+    assert err(got, want) <= TOL

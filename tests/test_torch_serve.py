@@ -4,7 +4,10 @@ Reduced tinyllama (2 layers, d_model 128, 4/2 heads, head_dim 32, vocab
 512) in float32 on both sides, the same weights moved across with the
 bridge, the same numpy prompts: ``build_prefill_step`` then greedy
 ``build_decode_step``, in three variants (full cache; a 16-slot rotating
-window that the 24-token prompt overfills; an int8 cache). Tolerance:
+window that the 24-token prompt overfills; an int8 cache). Reduced zamba2
+(4 Mamba-2 blocks, the shared attention block at 2 sites) the same way,
+with a full cache and an overfilled window, every cache leaf (``ssm``,
+``conv``, ``k``, ``v``) compared. Tolerance:
 scale-normalised max error (max |port - jax| / max |jax|) <= 1e-5 for
 logits and float cache leaves, which f32 reassociation stays far below at
 these widths, and greedy tokens equal.
@@ -83,10 +86,7 @@ VARIANTS = {
 }
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_prefill_and_decode_match_jax(variant):
-    changes, prompt_len, max_len = VARIANTS[variant]
-    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), **changes)
+def _prefill_and_decode_match_jax(cfg, prompt_len, max_len):
     jmodel = jbuild(cfg)
     values, _ = split_params(jmodel.init(1))
     model = build_model(cfg, device="cpu")
@@ -106,6 +106,7 @@ def test_prefill_and_decode_match_jax(variant):
             for name, leaf in seg.items():
                 want = jseg[name]
                 assert tuple(leaf.shape) == want.shape, name
+                assert str(leaf.dtype).split(".")[1] == want.dtype.name, name
                 if leaf.dtype == torch.int8:
                     diff = np.abs(leaf.numpy().astype(np.int32) - np.asarray(want, np.int32))
                     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, name
@@ -113,8 +114,10 @@ def test_prefill_and_decode_match_jax(variant):
                     assert err(leaf.float(), _np(want)) <= TOL, name
 
     check_cache()
-    if cfg.window:  # the prompt overfilled the window: the ring has rotated
-        assert cache[0]["k"].shape[2] == cfg.window < prompt_len
+    attn = [i for i, (kind, _) in enumerate(cfg.segments())
+            if kind in ("attn_mlp", "shared_attn")]
+    if 0 < cfg.window < prompt_len:  # the prompt overfilled the window: the ring rotated
+        assert cache[attn[0]]["k"].shape[2] == cfg.window
 
     tol = INT8_TOL if cfg.kv_cache_dtype == "int8" else TOL
     jdecode = jax.jit(jbuild_decode_step(jmodel))
@@ -130,6 +133,31 @@ def test_prefill_and_decode_match_jax(variant):
         tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
     check_cache()  # the in-place updates equal JAX's returned caches
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_prefill_and_decode_match_jax(variant):
+    changes, prompt_len, max_len = VARIANTS[variant]
+    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), **changes)
+    _prefill_and_decode_match_jax(cfg, prompt_len, max_len)
+
+
+HYBRID_VARIANTS = {
+    # name: (config changes, prompt length, max_len)
+    "full": ({}, 16, 32),
+    "window": ({"window": 16}, 24, 40),
+}
+
+
+@pytest.mark.parametrize("variant", list(HYBRID_VARIANTS))
+def test_hybrid_prefill_and_decode_match_jax(variant):
+    """Reduced zamba2: the ssd_scan entry's plain version in the prefill,
+    the shared block's per-site KV caches, the in-place SSM and conv state
+    updates of decode."""
+    changes, prompt_len, max_len = HYBRID_VARIANTS[variant]
+    cfg = dataclasses.replace(reduced(get_config("zamba2-1.2b")), **changes)
+    assert [k for k, _ in cfg.segments()] == ["mamba2", "shared_attn"] * 2
+    _prefill_and_decode_match_jax(cfg, prompt_len, max_len)
 
 
 def _args(**kw):
@@ -165,6 +193,56 @@ def test_decode_matches_fresh_prefill(dtype, layers, head_dim, monkeypatch):
             assert r["err"] <= SMOKE_AGREEMENT_TOL and r["argmax_agree"] >= 7
 
 
+#: The hybrid decode-vs-prefill bounds ``chip_smoke.py`` holds the
+#: full-width bf16 run to: logits as above; the recurrent states, per leaf,
+#: the worst per-layer scale-normalised error.
+SMOKE_STATE_TOL = {"ssm": 1e-1, "conv": 5e-2}
+
+
+@pytest.mark.parametrize("dtype,layers", [("float32", 4), ("bfloat16", 38)])
+def test_hybrid_decode_matches_fresh_prefill(dtype, layers, monkeypatch):
+    """The check ``chip_smoke.py`` makes on zamba2 at full width, here at
+    reduced widths: decode logits and the SSM and conv states after a step
+    against a fresh prefill of the same tokens. In f32 they agree to
+    reassociation. In bf16 the case keeps Zamba2's depth (38 Mamba-2
+    blocks, the shared block after every 6th), its SSM head dim and state
+    (64, 64) and attention head dim (64); its errors, printed with ``-s``,
+    ground the smoke's bounds."""
+    cfg = reduced(get_config("zamba2-1.2b"))
+    if dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, num_layers=layers, attn_every=6, head_dim=64,
+                                  ssm_head_dim=64, ssm_state=64, param_dtype=dtype,
+                                  compute_dtype=dtype)
+    monkeypatch.setattr(port_serve, "reduced", lambda _: cfg)
+    steps = (0, 4, 7, 10)
+    summary = port_serve.serve(_args(arch="zamba2-1.2b"), keep_logits=steps, keep_states=steps)
+    assert sorted(summary["states"]) == list(steps)
+    rows = port_serve.prefill_agreement(summary, steps)
+    print(f"{dtype}, {layers} layers: " + ", ".join(
+        f"step {r['step']}: err {r['err']:.3e}, argmax {r['argmax_agree']}/{r['rows']}, "
+        f"ssm {r['state_err']['ssm']:.3e}, conv {r['state_err']['conv']:.3e}" for r in rows))
+    for r in rows:
+        if dtype == "float32":
+            assert r["err"] <= TOL and r["argmax_agree"] == r["rows"]
+            assert max(r["state_err"].values()) <= TOL
+        else:
+            assert r["err"] <= SMOKE_AGREEMENT_TOL and r["argmax_agree"] >= 7
+            assert all(r["state_err"][k] <= SMOKE_STATE_TOL[k] for k in SMOKE_STATE_TOL)
+
+
+def test_hybrid_serve_cli(capsys):
+    argv = ["--arch", "zamba2-1.2b", "--batch", "2", "--prompt-len", "16", "--new-tokens", "4"]
+    assert port_serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "decoded 3 steps" in out and "first sequence:" in out
+    assert "params=715,360 (cfg.param_count() 879,296)" in out
+    if not torch.cuda.is_available():  # no card: the default device refuses
+        with pytest.raises(SystemExit) as exc:
+            port_serve.main(argv)
+        assert exc.value.code != 0
+        assert "CUDA" in capsys.readouterr().err
+
+
 def test_serve_cli(capsys):
     argv = ["--arch", "tinyllama-1.1b", "--batch", "2", "--prompt-len", "12",
             "--new-tokens", "4"]
@@ -174,7 +252,7 @@ def test_serve_cli(capsys):
     assert "hubert-xlarge: encoder-only" in capsys.readouterr().out
     assert port_serve.main(["--arch", "hubert-xlarge"]) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_serve.serve(_args(arch="zamba2-1.2b", batch=1, new_tokens=2))
+        port_serve.serve(_args(arch="xlstm-350m", batch=1, new_tokens=2))
     if not torch.cuda.is_available():  # no card: the default device refuses
         with pytest.raises(SystemExit) as exc:
             port_serve.main(argv)
@@ -182,9 +260,9 @@ def test_serve_cli(capsys):
         assert "CUDA" in capsys.readouterr().err
 
 
-def test_cache_specs_and_init_cache():
-    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), kv_cache_dtype="int8",
-                              window=16)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-1.2b"])
+def test_cache_specs_and_init_cache(arch):
+    cfg = dataclasses.replace(reduced(get_config(arch)), kv_cache_dtype="int8", window=16)
     model = build_model(cfg, device="cpu")
     jspecs = jbuild(cfg).cache_specs(3, 40)
     specs = model.cache_specs(3, 40)
