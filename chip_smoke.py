@@ -11,13 +11,19 @@ and each of which prints its wall time:
    decode_attention, ssd_scan) from the sources in this checkout, one nvcc
    each, all started together;
 3. kernel parity: every kernel against its plain PyTorch version on the
-   card, over the port's parity grid, a few edge cases and the shapes the
-   main paths give it: exact for the two integer gathers, the registry's
+   card, over the port's parity grid, edge cases and the shapes the main
+   paths give it: exact for the two integer gathers, the registry's
    scale-normalised tolerance for the attention kernels (f32 2e-5, bf16
-   2e-2) and the SSD scan (f32 2e-4, bf16 5e-2). Times each kernel, its
-   plain version and, where one exists, the PyTorch library call computing
-   the same function on the device (a CUDA graph of many calls, CUDA
-   events), and computes its bound from the inputs;
+   2e-2) and the SSD scan (f32 2e-4, bf16 5e-2). The attention edge cases
+   sit at the kernels' tile edges: flash at S 1-257 with windows of
+   127-129 (first kv tiles fully masked), D 32/64/128, G 1/4/8, causal and
+   not; decode at G 1-16 with a split and an unsplit cache, a ring mask
+   that wraps and a fully masked row; and each attention kernel run twice
+   and replayed three times in a CUDA graph, bit for bit equal (their
+   self-resetting counters: flash's work items, decode's split merge).
+   Times each kernel, its plain version and, where one exists, the PyTorch
+   library call computing the same function on the device (a CUDA graph
+   of many calls, CUDA events), and computes its bound from the inputs;
 4. training main path: ``repro_torch.launch.train`` at tinyllama-1.1b
    full width (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16),
    B=8, S=2048, ``--device-path gather --remat dots`` for 6 steps. Checks
@@ -61,6 +67,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -296,9 +303,9 @@ def check_chunk_gather(device) -> dict:
 
 def check_attention_grid(device) -> None:
     """Both attention kernels against their plain versions over the parity
-    grid and a few edge cases: fully masked decode rows, lengths that are
-    not a multiple of the tiles, G = 1, windows whose first kv tile is
-    fully masked."""
+    grid and edge cases: fully masked decode rows, lengths that are not a
+    multiple of the tiles, windows whose first kv tile is fully masked,
+    then :func:`check_flash_edges` and :func:`check_decode_edges`."""
     import torch
 
     from repro_torch.kernels import parity
@@ -338,6 +345,142 @@ def check_attention_grid(device) -> None:
                      f"err {err:.3e} > {tol}")
             print(f"flash_attention S={s} causal={causal} window={window} {dtype}: "
                   f"scale-normalised err {err:.3e} (tolerance {tol})")
+    check_flash_edges(device)
+    check_decode_edges(device)
+
+
+#: Flash edge cases at the 128-row tiles' edges: (S, window, causal, (D, G)).
+#: Windows of 127-129 leave some rows' first kv tile fully masked.
+FLASH_EDGES = list(itertools.product((1, 127, 128, 129, 255, 257), (0, 127, 128, 129),
+                                     (True, False), ((32, 1), (64, 4), (128, 8))))
+
+
+def check_flash_edges(device) -> None:
+    """flash_attention_gqa (B=2, 2 kv heads) against its plain version at
+    the tile edges: every case of FLASH_EDGES in bf16, and those at D = 64
+    with window 0 or 128 in f32; then :func:`check_replay` of a bf16 call
+    (its work counters reset)."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    tols = parity.KERNELS["flash_attention"]["tols"]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(*c, "bfloat16") for c in FLASH_EDGES] + [
+        (*c, "float32") for c in FLASH_EDGES if c[1] in (0, 128) and c[3][0] == 64]
+    for s, window, causal, (d, g), dtype in cases:
+        q = torch.randn(2, s, 2 * g, d, generator=gen, device=device).to(getattr(torch, dtype))
+        k, v = (torch.randn(2, s, 2, d, generator=gen, device=device).to(q.dtype)
+                for _ in range(2))
+        got = flash_attention_gqa(q, k, v, causal=causal, window=window)
+        err = parity.max_err(got, attention_gqa_ref(q, k, v, causal=causal, window=window))
+        if not err <= tols[dtype] or not torch.isfinite(got.float()).all():
+            fail(f"flash_attention_gqa S={s} window={window} causal={causal} D={d} G={g} "
+                 f"{dtype}: scale-normalised err {err:.3e} > {tols[dtype]}")
+        worst[dtype] = max(worst[dtype], err)
+    q = torch.randn(2, 1000, 8, 64, generator=gen, device=device).bfloat16()
+    k, v = (torch.randn(2, 1000, 2, 64, generator=gen, device=device).bfloat16()
+            for _ in range(2))
+    check_replay("flash_attention_gqa (persistent blocks, work counters)",
+                 lambda: flash_attention_gqa(q, k, v, causal=True, window=300))
+    print(f"flash_attention_gqa at the tile edges: {len(cases)} cases (S 1-257, windows "
+          f"0/127/128/129, causal and not, D 32/64/128, G 1/4/8); worst scale-normalised "
+          f"err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e} (tolerance "
+          f"{tols['float32']} / {tols['bfloat16']})")
+
+
+def ring_mask(b: int, s: int, start: int, count: int, device):
+    """(B, S) validity of ``count`` ring slots from ``start``, wrapping
+    past S; batch row 0 fully masked."""
+    import torch
+
+    slots = (torch.arange(s, device=device) - start) % s
+    mask = (slots < count)[None, :].expand(b, s).contiguous()
+    mask[0] = False
+    return mask
+
+
+def check_decode_edges(device) -> None:
+    """decode_attention against its plain version at G = 1, 2, 4, 8, 16: a
+    shape whose cache is split (few blocks, 1000 slots) and one that is
+    not (256 blocks), S not a multiple of any tile, a ring mask that wraps,
+    batch row 0 fully masked; then :func:`check_decode_replay`."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.decode_attention.ops import (
+        _sm_count, _splits, decode_attention, query_group)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    tols = parity.KERNELS["decode_attention"]["tols"]
+    for i, g in enumerate((1, 2, 4, 8, 16)):
+        d = (32, 64, 128)[i % 3]
+        for b, kvh, s in ((2, 2, 1000), (16, 16, 300)):  # split, and not
+            blocks = b * kvh * -(-g // query_group(g))
+            splits = _splits(blocks, s, _sm_count(device.index or 0))
+            for dtype in ("float32", "bfloat16"):
+                q = torch.randn(b, kvh * g, d, generator=gen, device=device).to(
+                    getattr(torch, dtype))
+                ck, cv = (torch.randn(b, s, kvh, d, generator=gen, device=device).to(q.dtype)
+                          for _ in range(2))
+                mask = ring_mask(b, s, s - 37, s - 5, device)
+                got = decode_attention(q, ck, cv, mask)
+                err = parity.max_err(got, decode_attention_plain(q, ck, cv, mask))
+                if not err <= tols[dtype] or not torch.isfinite(got.float()).all() \
+                        or got[0].any():
+                    fail(f"decode_attention G={g} {(b, kvh, s, d)} {dtype}, {splits} splits: "
+                         f"scale-normalised err {err:.3e} (tolerance {tols[dtype]}) or row 0 "
+                         f"not zeros")
+                print(f"decode_attention G={g} (B, KVH, S, D)={(b, kvh, s, d)} {dtype}, "
+                      f"{splits} splits: scale-normalised err {err:.3e} (tolerance "
+                      f"{tols[dtype]}); fully masked row zeros")
+    check_decode_replay(device)
+
+
+def check_replay(name: str, fn) -> None:
+    """``fn()`` run twice in a row, then captured in a CUDA graph replayed
+    three times: every result must equal the first bit for bit (a kernel's
+    self-resetting counters are back at 0 after each launch)."""
+    import torch
+
+    first = fn()
+    runs = [fn()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        graph.replay()
+        runs.append(out.clone())
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, first) for r in runs):
+        fail(f"{name} differs between calls or graph replays (counters not reset?)")
+    print(f"{name}: a second call and 3 graph replays equal the first call bit for bit")
+    del graph
+
+
+def check_decode_replay(device) -> None:
+    """:func:`check_replay` of decode_attention at a shape whose splits
+    merge through the ticket counters."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.decode_attention.ops import _sm_count, _splits, decode_attention
+
+    case = parity.KernelCase("decode_attention", (8, 32, 4, 2048, 64), "bfloat16")
+    q, ck, cv, _ = parity.make_inputs(case, device=device)
+    mask = ring_mask(8, 2048, 100, 2000, device)
+    splits = _splits(8 * 4, 2048, _sm_count(device.index or 0))
+    if splits < 2:
+        fail(f"the replay check needs a split shape, got {splits} split")
+    check_replay(f"decode_attention with {splits} splits",
+                 lambda: decode_attention(q, ck, cv, mask))
 
 
 def check_flash_main(device) -> dict:
@@ -821,7 +964,7 @@ def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
             tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         torch.cuda.synchronize()
     print(f"decode steps 3-{steps}:")
-    out = device_profile(prof, "chip_smoke.decode2", "decode_partial_kernel", steps - 2)
+    out = device_profile(prof, "chip_smoke.decode2", "decode_attention_kernel", steps - 2)
     out["steps"] = steps
     return out
 

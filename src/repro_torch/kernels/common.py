@@ -13,10 +13,12 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "round_up"]
+__all__ = ["resolve_device", "round_up", "zeroed_counters"]
 
 #: Compute capability the CUDA sources are built for (``sm_90a``).
 CAPABILITY = (9, 0)
+_counters: dict[tuple[str, int], torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []  # kept alive for CUDA graphs that captured them
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -54,3 +56,25 @@ def _checked_cuda(index: int) -> torch.device:
             f"capability {cap}; the kernels are built for sm_90a {CAPABILITY}"
         )
     return torch.device("cuda", index)
+
+
+def zeroed_counters(owner: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters on ``device`` for ``owner``'s kernel.
+
+    They are zeroed once, when allocated, and every launch of the kernel
+    leaves them at 0 again, so a call costs no memset. That assumes one
+    stream at a time per device, as prefill and decode run. A buffer is
+    allocated, or grown, only outside CUDA graph capture.
+    """
+    key = (owner, device.index)
+    have = _counters.get(key)
+    if have is None or have.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{owner}'s counters must be allocated outside CUDA graph "
+                               "capture: call it once at this size before capturing")
+        if have is not None:
+            _outgrown.append(have)
+        have = torch.zeros(max(n, 0 if have is None else 2 * have.numel()), dtype=torch.int32,
+                           device=device)
+        _counters[key] = have
+    return have

@@ -3,7 +3,10 @@
 On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
 launches the kernel in ``decode_attention.cu`` on the current stream, or
 raises. ``decode_attention.launches`` counts kernel launches, and only
-those (one per call: the split-S partial pass and its merge).
+those (one per call: the splits of S merge inside the same launch).
+
+The kernel's split merge takes tickets from int32 counters that each
+launch leaves at 0 (``common.zeroed_counters``).
 """
 
 from __future__ import annotations
@@ -14,16 +17,17 @@ import functools
 import torch
 
 from .. import build
-from ..common import resolve_device
+from ..common import resolve_device, zeroed_counters
 from .ref import decode_attention_plain
 
-__all__ = ["HEAD_DIMS", "decode_attention"]
+__all__ = ["HEAD_DIMS", "decode_attention", "query_group"]
 
 #: Head dims the CUDA kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TARGET_BLOCKS_PER_SM = 2
+_TARGET_BLOCKS_PER_SM = 1
 _MIN_ROWS_PER_SPLIT = 256
+_MAX_QUERY_GROUP = 8
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p: never cut to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -43,10 +47,22 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def query_group(g: int) -> int:
+    """The query group a block serves: the smallest of 1, 2, 4, 8 that
+    covers ``g`` query heads per kv head; a larger ``g`` runs in groups of 8."""
+    if g < 1:
+        raise ValueError(f"need at least one query head per kv head, got {g}")
+    return min(_MAX_QUERY_GROUP, 1 << (g - 1).bit_length())
+
+
 def _splits(blocks: int, s: int, sms: int) -> int:
-    """How many parts the cache length is split into, so that about two
-    blocks per SM are in flight, each with at least 256 cache rows."""
-    want = -(-_TARGET_BLOCKS_PER_SM * sms // blocks)
+    """How many parts the cache length is split into: only as far as
+    ``blocks`` (one per batch, kv head and query group) leave the card short
+    of one block per SM, each part at least 256 cache rows. (On an H100 at
+    tinyllama's decode shape, 4 splits ran faster than 8: each split adds
+    a partial to merge, and one block per SM already keeps enough bytes in
+    flight.)"""
+    want = _TARGET_BLOCKS_PER_SM * sms // blocks
     return max(1, min(want, -(-s // _MIN_ROWS_PER_SPLIT), 65535))
 
 
@@ -101,16 +117,22 @@ def decode_attention(q, cache_k, cache_v, mask):
     if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
         raise ValueError("q and the caches must be 16-byte aligned")
     g = h // kvh
-    splits = _splits(b * kvh * -(-g // 8), s, _sm_count(device.index or 0))
+    gq = query_group(g)
+    blocks = b * kvh * -(-g // gq)
+    splits = _splits(blocks, s, _sm_count(device.index or 0))
     out = torch.empty_like(q)
-    part = torch.empty((splits, b * h, d + 2), dtype=torch.float32, device=device)
+    part = tickets = None
+    if splits > 1:
+        part = torch.empty((blocks, splits, gq, d + 2), dtype=torch.float32, device=device)
+        tickets = zeroed_counters("decode_attention", device, blocks)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.decode_attention_launch(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), part.data_ptr(), b, kvh, g, s, d, splits, _DTYPES[q.dtype],
-            stream,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), b, kvh, g, s, d, gq, splits,
+            _DTYPES[q.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError("decode_attention launch failed: "

@@ -6,6 +6,9 @@ raise. The kernel is a forward only, so both wrappers refuse inputs that
 require grad: it can never slip into a training step unseen.
 ``flash_attention.launches`` counts kernel launches from either wrapper,
 and only those.
+
+The bf16 kernel's persistent blocks take work items from two int32
+counters that each launch leaves at 0 (``common.zeroed_counters``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import ctypes
 import torch
 
 from .. import build
-from ..common import resolve_device
+from ..common import resolve_device, zeroed_counters
 from .ref import attention_gqa_ref, attention_ref
 
 __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_gqa"]
@@ -23,7 +26,6 @@ __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_gqa"]
 #: Head dims the CUDA kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BATCH_HEADS = 65535  # the grid's y extent
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,7 +33,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p: never cut to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -64,17 +66,16 @@ def _launch(q, k, v, causal: bool, window: int):
     kvh = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one the kernel is built for {HEAD_DIMS}")
-    if b * h > _MAX_BATCH_HEADS:
-        raise ValueError(f"batch x heads {b * h} exceeds the kernel's grid limit "
-                         f"{_MAX_BATCH_HEADS}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # TMA's base-address rule
         raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
+    sched = zeroed_counters("flash_attention", device, 2) if q.dtype == torch.bfloat16 else None
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kvh, s, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if sched is None else sched.data_ptr(), b, h, kvh, s, d,
             int(bool(causal)), int(window), _DTYPES[q.dtype], stream,
         )
     if rc != 0:

@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import parity
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.common import zeroed_counters
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ops import decode_attention, query_group
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.models.convert import from_numpy
 
@@ -73,6 +75,9 @@ def _edge_inputs(b, h, kvh, s, d, dtype, seed=0):
         ("s_not_multiple_of_128", (2, 8, 2, 40, 64)),
         ("g_equals_1", (2, 4, 4, 96, 32)),
         ("g_equals_8", (3, 32, 4, 72, 64)),
+        # Query groups the CUDA kernel sizes to G: 2, and 16 in two groups of 8.
+        ("g_equals_2", (2, 4, 2, 50, 128)),
+        ("g_equals_16", (2, 32, 2, 33, 32)),
     ],
 )
 def test_edge_cases_match_jax_kernel(name, shape, dtype):
@@ -118,6 +123,54 @@ def test_cpu_path_runs_the_plain_version_and_counts_no_launch():
     assert decode_attention.launches == before
 
 
+@pytest.mark.parametrize("g,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8),
+                                    (12, 8), (16, 8)])
+def test_query_group_is_the_smallest_power_of_two_up_to_8(g, want):
+    assert query_group(g) == want
+
+
+def test_query_group_refuses_zero():
+    with pytest.raises(ValueError, match="at least one"):
+        query_group(0)
+
+
+@pytest.mark.parametrize(
+    "blocks,s,sms,want",
+    [
+        (8 * 32, 4096, 132, 1),   # zamba2 decode, G = 1: 256 blocks fill the card
+        (8 * 4, 2048, 132, 4),    # tinyllama decode, G = 8: one group a kv head
+        (8 * 4, 512, 132, 2),     # each split keeps at least 256 rows
+        (1, 100, 132, 1),         # a short cache is never split
+        (2 * 2 * 2, 1000, 132, 4),
+    ],
+)
+def test_splits_fill_the_card_only_as_far_as_needed(blocks, s, sms, want):
+    assert decode_ops._splits(blocks, s, sms) == want
+
+
+def test_counters_are_zeroed_once_reused_and_grown():
+    """The kernels' self-resetting counters: one zeroed buffer per owner and
+    device, handed out again while it is large enough, replaced by a larger
+    zeroed one when it is not."""
+    cpu = torch.device("cpu")
+    first = zeroed_counters("test_owner", cpu, 3)
+    assert first.dtype == torch.int32 and first.numel() == 3 and not first.any()
+    assert zeroed_counters("test_owner", cpu, 2) is first
+    assert zeroed_counters("other_owner", cpu, 2) is not first
+    grown = zeroed_counters("test_owner", cpu, 5)
+    assert grown.numel() >= 5 and not grown.any()
+    assert zeroed_counters("test_owner", cpu, 5) is grown
+
+
+def _ring_mask(b, s, start, count):
+    """(B, S) validity of ``count`` ring slots from ``start``, wrapping past
+    S; batch row 0 fully masked."""
+    slots = (torch.arange(s, device="cuda") - start) % s
+    mask = (slots < count)[None, :].expand(b, s).contiguous()
+    mask[0] = False
+    return mask
+
+
 def test_cuda_kernel_matches_plain_version():
     """Needs a capability-9.0 card and nvcc: the kernel has no CPU mode."""
     if not torch.cuda.is_available():
@@ -136,3 +189,48 @@ def test_cuda_kernel_matches_plain_version():
         tol = parity.KERNELS["decode_attention"]["tols"][case.dtype]
         assert parity.max_err(got, want) <= tol, case.name
         assert not got[0].any(), case.name
+    # G = 1, 2, 4, 8, 16 with a split cache and an unsplit one, a ring mask
+    # that wraps, S a multiple of no tile.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i, g in enumerate((1, 2, 4, 8, 16)):
+        d = (32, 64, 128)[i % 3]
+        for b, kvh, s in ((2, 2, 1000), (16, 16, 300)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn(b, kvh * g, d, generator=gen, device="cuda").to(dtype)
+                ck, cv = (torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
+                          for _ in range(2))
+                mask = _ring_mask(b, s, s - 37, s - 5)
+                got = decode_attention(q, ck, cv, mask)
+                want = decode_attention_plain(q, ck, cv, mask)
+                tol = parity.KERNELS["decode_attention"]["tols"][str(dtype).split(".")[1]]
+                name = f"G={g} {(b, kvh, s, d)} {dtype}"
+                assert parity.max_err(got, want) <= tol, name
+                assert not got[0].any(), name
+
+
+def test_cuda_split_counters_reset_across_calls_and_graph_replays():
+    """Needs a card: the split merge's ticket counters must be back at 0
+    after every call, so repeated calls and CUDA graph replays agree bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    case = parity.KernelCase("decode_attention", (8, 32, 4, 2048, 64), "bfloat16")
+    q, ck, cv, _ = parity.make_inputs(case, device="cuda")
+    mask = _ring_mask(8, 2048, 100, 2000)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert decode_ops._splits(8 * 4, 2048, sms) > 1
+    first = decode_attention(q, ck, cv, mask)
+    runs = [decode_attention(q, ck, cv, mask)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, ck, cv, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, ck, cv, mask)
+    for _ in range(3):
+        graph.replay()
+        runs.append(out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, first) for r in runs)

@@ -62,6 +62,11 @@ def test_plain_version_matches_jax_kernel(case):
         ("window_first_block_masked", 2, 96, 32, True, 16, 32),
         ("s_not_multiple_of_64", 2, 100, 64, True, 0, 50),
         ("window_not_causal", 2, 80, 32, False, 24, 40),
+        # The CUDA kernel's 128-row tiles: S one past a tile, windows at a
+        # tile's width (some rows' first kv tile fully masked).
+        ("s_129_window_127", 2, 129, 32, True, 127, 129),
+        ("s_255_window_128_not_causal", 2, 255, 64, False, 128, 255),
+        ("s_257_window_129", 1, 257, 32, True, 129, 257),
     ],
 )
 def test_edge_cases_match_jax_kernel(name, bh, s, d, causal, window, block, dtype):
@@ -142,6 +147,12 @@ def test_cpu_path_runs_the_plain_version_and_counts_no_launch():
     assert flash_attention.launches == before
 
 
+#: The CUDA kernel's tile edges: (S, window, causal, D, G); windows of
+#: 127-129 leave some rows' first kv tile fully masked.
+CUDA_EDGES = [(s, w, c, d, g) for s in (1, 127, 128, 129, 255, 257) for w in (0, 127, 128, 129)
+              for c in (True, False) for d, g in ((32, 1), (64, 4), (128, 8))]
+
+
 def test_cuda_kernel_matches_plain_version():
     """Needs a capability-9.0 card and nvcc: the kernel has no CPU mode."""
     if not torch.cuda.is_available():
@@ -168,3 +179,42 @@ def test_cuda_kernel_matches_plain_version():
         got = flash_attention_gqa(q, k, v, causal=True, window=0)
         want = attention_gqa_ref(q, k, v, causal=True, window=0)
         assert parity.max_err(got, want) <= TOLS[str(dtype).split(".")[1]]
+    for s, window, causal, d, g in CUDA_EDGES:
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if d == 64 else ()):
+            q = torch.randn(2, s, 2 * g, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(2, s, 2, d, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            got = flash_attention_gqa(q, k, v, causal=causal, window=window)
+            want = attention_gqa_ref(q, k, v, causal=causal, window=window)
+            name = f"S={s} window={window} causal={causal} D={d} G={g} {dtype}"
+            assert torch.isfinite(got.float()).all(), name
+            assert parity.max_err(got, want) <= TOLS[str(dtype).split(".")[1]], name
+
+
+def test_cuda_work_counters_reset_across_calls_and_graph_replays():
+    """Needs a card: the bf16 kernel's persistent blocks take work items from
+    counters that each launch must leave at 0, so repeated calls and CUDA
+    graph replays agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 1000, 8, 64, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(2, 1000, 2, 64, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    first = flash_attention_gqa(q, k, v, causal=True, window=300)
+    runs = [flash_attention_gqa(q, k, v, causal=True, window=300)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_gqa(q, k, v, causal=True, window=300)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_gqa(q, k, v, causal=True, window=300)
+    for _ in range(3):
+        graph.replay()
+        runs.append(out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, first) for r in runs)
+    want = attention_gqa_ref(q, k, v, causal=True, window=300)
+    assert parity.max_err(first, want) <= TOLS["bfloat16"]
