@@ -21,6 +21,11 @@ and each of which prints its wall time:
    that wraps and a fully masked row; and each attention kernel run twice
    and replayed three times in a CUDA graph, bit for bit equal (their
    self-resetting counters: flash's work items, decode's split merge).
+   ssd_scan at its bf16 kernel's edges: H of 1, G - 1, G, G + 1 and 65
+   (G heads a block), S of 1-257 across the 64-step tile, (P, N) padded
+   to 64 with copies of 16 (TMA), 8 and 4 bytes, with and without an
+   initial state, contiguous and strided, bf16 and f32; a bf16 x at an odd
+   element offset must raise; and the same replay check.
    Times each kernel, its plain version and, where one exists, the PyTorch
    library call computing the same function on the device (a CUDA graph
    of many calls, CUDA events), and computes its bound from the inputs;
@@ -651,7 +656,8 @@ def check_ssd_grid(device) -> None:
     """ssd_scan against its plain version over the parity grid and edge
     cases: a chunk that does not divide the kernel's 64-step tile, a chunk
     of 1, S not a multiple of the tile, a state that decays below 1e-30
-    within a step, and the model-layout entry with an initial state."""
+    within a step, the model-layout entry with an initial state, the
+    head-group edges (:func:`check_ssd_heads_edges`) and a replay check."""
     import torch
 
     from repro_torch.kernels import parity
@@ -676,10 +682,19 @@ def check_ssd_grid(device) -> None:
     x, b, c = (torch.randn(2, 150, n, generator=gen, device=device) for n in (32, 16, 16))
     dt = torch.full((2, 150), 5.0, device=device)
     a = torch.full((2, 1), -20.0, device=device)  # exp(a dt) = 3.7e-44 per step
-    err = parity.max_err(ssd_scan(x, dt, a, b, c, chunk=64), ssd_scan_ref(x, dt, a, b, c))
-    if not err <= tols["float32"]:
+    got = ssd_scan(x, dt, a, b, c, chunk=64)
+    err = parity.max_err(got, ssd_scan_ref(x, dt, a, b, c))
+    if not err <= tols["float32"] or not torch.isfinite(got).all():
         fail(f"ssd_scan with a state decaying below 1e-30: err {err:.3e}")
     print(f"ssd_scan, state decaying by 3.7e-44 a step: scale-normalised err {err:.3e}")
+    # The same in bf16 through the model layout (f32 out): denormal lo terms.
+    args = (x.bfloat16()[:, :, None], dt[:, :, None], a[0], b.bfloat16(), c.bfloat16())
+    got = ssd_scan_heads(*args)
+    err = parity.max_err(got, ssd_scan_heads_ref(*args))
+    if not err <= tols["float32"] or not all(torch.isfinite(t).all() for t in got):
+        fail(f"ssd_scan_heads bf16 with a state decaying below 1e-30: err {err:.3e}")
+    print(f"ssd_scan_heads bf16, state decaying by 3.7e-44 a step: scale-normalised err "
+          f"{err:.3e} (tolerance {tols['float32']})")
     xh = torch.randn(2, 90, 3, 64, generator=gen, device=device)
     dth = torch.rand(2, 90, 3, generator=gen, device=device) * 0.5 + 0.01
     ah = -torch.rand(3, generator=gen, device=device) * 2 - 0.1
@@ -687,10 +702,92 @@ def check_ssd_grid(device) -> None:
     s0 = torch.randn(2, 3, 64, 64, generator=gen, device=device)
     got = ssd_scan_heads(xh, dth, ah, bh, ch, s0)
     err = parity.max_err(got, ssd_scan_heads_ref(xh, dth, ah, bh, ch, s0))
-    if not err <= tols["float32"]:
+    if not err <= tols["float32"] or not all(torch.isfinite(t).all() for t in got):
         fail(f"ssd_scan_heads with an initial state: err {err:.3e}")
     print(f"ssd_scan_heads with an initial state (y and final state): "
           f"scale-normalised err {err:.3e} (tolerance {tols['float32']})")
+    check_ssd_heads_edges(device)
+    args = ssd_heads_inputs(device, 2, 257, 65, 64, 64, init=True, strided=True,
+                            dtype=torch.bfloat16, seed=5)
+    check_replay("ssd_scan_heads bf16 (2, 257, 65, 64) with 64 states",
+                 lambda: torch.cat([t.flatten() for t in ssd_scan_heads(*args)]))
+
+
+def ssd_heads_inputs(device, b: int, s: int, h: int, p: int, n: int, *, init: bool,
+                     strided: bool, dtype, seed: int) -> tuple:
+    """Model-layout inputs: x, B and C contiguous, or column slices of one
+    conv output (b, s, h p + 2 n) as the model hands them over; dt from
+    [0.01, 0.51), A from [-2.1, -0.1); with ``init`` an f32 initial state."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if strided:
+        xbc = torch.randn(b, s, h * p + 2 * n, generator=gen, device=device).to(dtype)
+        xh = xbc[..., : h * p].reshape(b, s, h, p)
+        bm, cm = xbc[..., h * p : h * p + n], xbc[..., h * p + n :]
+    else:
+        xh = torch.randn(b, s, h, p, generator=gen, device=device).to(dtype)
+        bm, cm = (torch.randn(b, s, n, generator=gen, device=device).to(dtype)
+                  for _ in range(2))
+    dt = torch.rand(b, s, h, generator=gen, device=device) * 0.5 + 0.01
+    a = -torch.rand(h, generator=gen, device=device) * 2 - 0.1
+    s0 = torch.randn(b, h, p, n, generator=gen, device=device) if init else None
+    return xh, dt, a, bm, cm, s0
+
+
+def check_ssd_heads_edges(device) -> None:
+    """ssd_scan_heads against its plain version where the bf16 kernel's
+    head groups, tiles and copies have edges: H of 1, G - 1, G, G + 1 and
+    65 (G heads a block; heads past H masked), S of 1, 63, 64, 65 and 257
+    (tiles of 64), (P, N) of (20, 12), (48, 40), (64, 64) and (18, 10)
+    (zero padding to 64; (18, 10) gives 4-byte copies), with and without an
+    initial state, contiguous and strided; bf16 and f32 inputs alike, at
+    the registry's f32 tolerance (bf16 inputs are exact in f32). A bf16
+    view with an odd element offset must raise."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.ssd_scan.ops import copy_width, heads_per_block, ssd_scan_heads
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_heads_ref
+
+    tol = parity.KERNELS["ssd_scan"]["tols"]["float32"]
+    group = heads_per_block()
+    heads = sorted({hh for hh in (1, group - 1, group, group + 1, 65) if hh >= 1})
+    worst, widths, count = {}, {}, 0
+    for seed, (hh, s, (p, n), init, strided, dtype) in enumerate(itertools.product(
+            heads, (1, 63, 64, 65, 257), ((20, 12), (48, 40), (64, 64), (18, 10)),
+            (False, True), (False, True), (torch.bfloat16, torch.float32))):
+        args = ssd_heads_inputs(device, 2, s, hh, p, n, init=init, strided=strided,
+                                dtype=dtype, seed=seed)
+        got = ssd_scan_heads(*args)
+        want = ssd_scan_heads_ref(*args)
+        torch.cuda.synchronize()
+        err = parity.max_err(got, want)
+        if not err <= tol or not all(torch.isfinite(t).all() for t in got):
+            fail(f"ssd_scan_heads {dtype} (2, {s}, {hh}, {p}) N {n} init {init} strided "
+                 f"{strided}: scale-normalised err {err:.3e} (tolerance {tol})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if dtype == torch.bfloat16:
+            width = copy_width(*args[0:1], *args[3:5])
+            widths[width] = widths.get(width, 0) + 1
+        count += 1
+    if sorted(widths) != [4, 8, 16]:
+        fail(f"the edge grid copied in pieces of {sorted(widths)} bytes, not 4, 8 and 16")
+    print(f"ssd_scan_heads edges, G = {group}: {count} cases (H {heads}; S 1, 63, 64, 65, 257; "
+          f"(P, N) (20, 12), (48, 40), (64, 64), (18, 10); with and without a state; "
+          f"contiguous and strided): worst err bf16 {worst[torch.bfloat16]:.3e}, f32 "
+          f"{worst[torch.float32]:.3e} (tolerance {tol}); bf16 copies of 16 / 8 / 4 bytes in "
+          f"{widths[16]} / {widths[8]} / {widths[4]} cases")
+    xh, dt, a, bm, cm, _ = ssd_heads_inputs(device, 1, 8, 2, 16, 16, init=False, strided=False,
+                                            dtype=torch.bfloat16, seed=0)
+    odd = torch.empty(xh.numel() + 1, dtype=xh.dtype, device=device)[1:].view(xh.shape)
+    odd.copy_(xh)
+    try:
+        ssd_scan_heads(odd, dt, a, bm, cm)
+    except ValueError as exc:
+        print(f"ssd_scan_heads refuses a bf16 x at an odd element offset: {exc}")
+    else:
+        fail("ssd_scan_heads took a bf16 x at an odd element offset")
 
 
 def ssd_least_work(b: int, s: int, h: int, p: int, n: int) -> int:
@@ -700,7 +797,7 @@ def ssd_least_work(b: int, s: int, h: int, p: int, n: int) -> int:
 
 
 def ssd_tile_work(b: int, s: int, h: int, p: int, n: int, tile: int = 64) -> int:
-    """FLOP of the chunked form the kernel runs, at its tile: per tile of L
+    """FLOP of the chunked form at a tile of ``tile`` steps: per tile of L
     steps, the causal half of the intra term, L(L+1)/2 (N + P)
     multiply-adds, the inter term and the state update, 2 L N P."""
     full, rest = divmod(s, tile)
@@ -709,16 +806,27 @@ def ssd_tile_work(b: int, s: int, h: int, p: int, n: int, tile: int = 64) -> int
     return 2 * b * h * per_head
 
 
+def ssd_mma_work(b: int, s: int, h: int, group: int) -> int:
+    """FLOP the bf16 kernel issues on the tensor cores (m16n8k16, 4096 FLOP
+    each; P and N padded to 64): per 64-step tile, 80 for C Bᵀ a block and
+    672 a head (intra 160, inter 256, update 256, the hi + lo splits
+    doubled)."""
+    tiles, blocks = -(-s // 64), -(-h // group)
+    return b * tiles * (blocks * 80 + h * 672) * 4096
+
+
 def check_ssd_main(device) -> dict:
     """ssd_scan at the prefill's shape, as the model calls it: x, B and C
     bf16 column slices of one conv output, dt from a softplus, A =
     -linspace(1, 16) (the init); y and the final state held to the plain
-    version (f32 arithmetic on bf16-exact inputs: the registry's f32 2e-4)."""
+    version (f32 arithmetic on bf16-exact inputs: the registry's f32 2e-4).
+    The bound is the bytes (the bare recurrence's FLOP take 0.03 ms on the
+    bf16 tensor cores); its f32 CUDA-core time is printed beside it."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import parity
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_heads
+    from repro_torch.kernels.ssd_scan.ops import heads_per_block, ssd_scan_heads
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_heads_ref
 
     b, s, h, p, n = 8, 3584, 64, 64, 64
@@ -739,26 +847,32 @@ def check_ssd_main(device) -> dict:
     torch.cuda.empty_cache()
     t = turns(lambda: ssd_scan_heads(xh, dt, a, bm, cm),
               lambda: ssd_scan_heads_ref(xh, dt, a, bm, cm), calls=1, reps=3)
+    group = heads_per_block()
     flops, tile_flops = ssd_least_work(b, s, h, p, n), ssd_tile_work(b, s, h, p, n)
+    mma_flops = ssd_mma_work(b, s, h, group)
     # x, B, C read once (bf16); dt (f32) and A once; y (f32) and the final
     # state (f32) written once.
     moved = (xh.numel() + bm.numel() + cm.numel()) * 2 + dt.numel() * 4 + a.numel() * 4 \
         + xh.numel() * 4 + b * h * p * n * 4
-    bound_ms, bound_by = bound(flops, moved, F32_FLOP_PER_S)
-    print(f"ssd_scan_heads xh {tuple(xh.shape)} bf16 (strided), B/C {tuple(bm.shape)}: "
-          f"y err {errs[0]:.3e}, final state err {errs[1]:.3e} (tolerance {tol}), max abs err "
-          f"{abs_err:.4g}; device time per call (CUDA graph of 1 call): kernel "
-          f"{t['runs_ms'][0]:.4f} / {t['runs_ms'][1]:.4f} ms, plain "
-          f"{t['plain_runs_ms'][0]:.2f} / {t['plain_runs_ms'][1]:.2f} ms; "
-          f"library: none; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP of the bare "
-          f"recurrence at 67 TFLOP/s f32, {moved} bytes at 3.35 TB/s); the chunked form at "
-          f"the kernel's 64-step tile does {tile_flops:.4g} FLOP")
+    bound_ms, bound_by = bound(flops, moved)
+    f32_bound_ms, _ = bound(flops, moved, F32_FLOP_PER_S)
+    print(f"ssd_scan_heads xh {tuple(xh.shape)} bf16 (strided), B/C {tuple(bm.shape)}, "
+          f"{group} heads a block: y err {errs[0]:.3e}, final state err {errs[1]:.3e} "
+          f"(tolerance {tol}), max abs err {abs_err:.4g}; device time per call (CUDA graph of "
+          f"1 call): kernel {t['runs_ms'][0]:.4f} / {t['runs_ms'][1]:.4f} ms, plain "
+          f"{t['plain_runs_ms'][0]:.2f} / {t['plain_runs_ms'][1]:.2f} ms; library: none; "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {moved} bytes at 3.35 TB/s; the bare "
+          f"recurrence's {flops:.4g} FLOP take {flops / BF16_FLOP_PER_S * 1e3:.4f} ms at "
+          f"989 TFLOP/s bf16); on the CUDA cores in f32 they would take {f32_bound_ms:.4f} ms "
+          f"at 67 TFLOP/s; the kernel issues {mma_flops:.4g} FLOP on the tensor cores (the "
+          f"chunked form at 64-step tiles is {tile_flops:.4g})")
     spec = parity.KERNELS["ssd_scan"]
     return {"name": "ssd_scan", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
             "max_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "flops": flops, "tile_flops": tile_flops, "bytes": moved}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "f32_bound_ms": f32_bound_ms, "group": group, "flops": flops,
+            "tile_flops": tile_flops, "mma_flops": mma_flops, "bytes": moved}
 
 
 # --------------------------------------------------------------- phase 4
@@ -1051,7 +1165,7 @@ def where_prefill_time_goes(summary) -> dict:
         prefill({"tokens": prompts})
         torch.cuda.synchronize()
     print("prefill:")
-    return device_profile(prof, "chip_smoke.prefill", "ssd_scan_kernel", 1)
+    return device_profile(prof, "chip_smoke.prefill", "ssd_scan_bf16_kernel", 1)
 
 
 # --------------------------------------------------------------- phase 6

@@ -1,6 +1,6 @@
 """The ssd_scan wrappers (``repro/kernels/ssd_scan/ops.py``).
 
-Two entries share one kernel and one launch counter, ``ssd_scan.launches``:
+Two entries share one launcher and one launch counter, ``ssd_scan.launches``:
 
 * :func:`ssd_scan` keeps the reference's API and layout: one head per row
   of BH, its own B and C; returns y in ``x.dtype`` (the kernel writes f32,
@@ -11,15 +11,22 @@ Two entries share one kernel and one launch counter, ``ssd_scan.launches``:
   final_state (B, H, P, N) f32)``, the state the decode cache starts from.
 
 On CPU tensors both run the plain sequential recurrence (``ref.py``); on
-CUDA tensors they launch the kernel in ``ssd_scan.cu`` on the current
-stream, or raise. The kernel is a forward only, so both refuse inputs that
-require grad. It tiles 64 time steps whatever ``chunk`` the caller names:
-the chunked scan computes the same function for any chunk length.
+CUDA tensors they launch ``ssd_scan.cu`` on the current stream, or raise.
+bf16 inputs go to the tensor-core kernel: one block per batch row and
+group of :func:`heads_per_block` heads. Its tiles come by TMA where x, B
+and C start and step on 16 bytes, else by ``cp.async`` copies of 8 or 4
+bytes (:func:`copy_width`); rows that do not start and step on 4 bytes
+(an odd element offset or stride) raise. f32 inputs go to the CUDA-core
+kernel, which takes any strides. The kernels are a forward only, so both
+entries refuse inputs that require grad. They tile 64 time steps whatever
+``chunk`` the caller names: the chunked scan computes the same function
+for any chunk length.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -27,12 +34,13 @@ from .. import build
 from ..common import resolve_device
 from .ref import ssd_scan_heads_ref, ssd_scan_ref
 
-__all__ = ["MAX_DIM", "ssd_scan", "ssd_scan_heads"]
+__all__ = ["MAX_DIM", "copy_width", "heads_per_block", "ssd_scan", "ssd_scan_heads"]
 
 #: Largest head dim P and state size N the kernel holds.
 MAX_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NUM_STRIDES = 15
+_COPY_WIDTHS = (16, 8, 4)
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,12 +49,42 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p: never cut to 32 bits.
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
+                       + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib.ssd_scan_heads_per_block.argtypes = []
+        lib.ssd_scan_heads_per_block.restype = ctypes.c_int
     return lib
+
+
+def heads_per_block() -> int:
+    """Heads one block of the bf16 kernel scans (builds the library)."""
+    return _lib().ssd_scan_heads_per_block()
+
+
+def copy_width(*tensors: torch.Tensor) -> int:
+    """The widest copy the bf16 kernel may use for these operands: the
+    largest of 16, 8 and 4 bytes that divides every start address and every
+    stride (in bytes) of a dim longer than 1. 16 loads the tiles by TMA, 8
+    and 4 by ``cp.async`` copies of that size. A row's last dim must have
+    unit stride; its length need not divide the width (the copy past it is
+    zero-filled).
+
+    Raises ValueError when not even 4 bytes divide them.
+    """
+    gcd = 0
+    for t in tensors:
+        gcd = math.gcd(gcd, t.data_ptr())
+        for size, stride in zip(t.shape[:-1], t.stride()[:-1]):
+            if size > 1:
+                gcd = math.gcd(gcd, stride * t.element_size())
+    for width in _COPY_WIDTHS:
+        if gcd % width == 0:
+            return width
+    raise ValueError("bf16 x, b and c must start and step their rows on 4-byte "
+                     f"boundaries (even element offsets and strides); they share only {gcd}")
 
 
 def _check_tensors(**tensors) -> torch.device:
@@ -78,6 +116,7 @@ def _launch(xh, dt, a, b, c, y, state0, final, a_strides) -> None:
     for name, t in (("xh", xh), ("b", b), ("c", c), ("y", y)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a unit stride on its last dim")
+    width = copy_width(xh, b, c) if xh.dtype == torch.bfloat16 else 0
     strides = (*xh.stride()[:2], xh.stride(2), *dt.stride(), *a_strides,
                *b.stride()[:2], *c.stride()[:2], *y.stride()[:3])
     arr = (ctypes.c_longlong * _NUM_STRIDES)(*strides)
@@ -88,7 +127,7 @@ def _launch(xh, dt, a, b, c, y, state0, final, a_strides) -> None:
             xh.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
             y.data_ptr(), state0.data_ptr() if state0 is not None else None,
             final.data_ptr() if final is not None else None,
-            bsz, h, s, p, n, arr, _NUM_STRIDES, _DTYPES[xh.dtype], stream,
+            bsz, h, s, p, n, arr, _NUM_STRIDES, _DTYPES[xh.dtype], width, stream,
         )
     if rc != 0:
         raise RuntimeError("ssd_scan launch failed: " + lib.ssd_scan_error_string(rc).decode())

@@ -11,12 +11,14 @@ model-layout entry (shared B and C, final state) is held to the JAX model's
 sequential one and a chunked one, and differ by reassociation only.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import parity
-from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_heads
+from repro_torch.kernels.ssd_scan.ops import copy_width, ssd_scan, ssd_scan_heads
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_heads_ref, ssd_scan_ref
 from repro_torch.models.convert import from_numpy
 
@@ -163,10 +165,74 @@ def test_cpu_path_does_not_count_launches():
     assert ssd_scan.launches == before
 
 
+def _conv_slices(b, s, h, p, n, offset=0):
+    """x, B and C as the model hands them over: column slices of one conv
+    output (b, s, h p + 2 n) in bf16, starting ``offset`` elements in."""
+    xbc = torch.zeros(b, s, offset + h * p + 2 * n, dtype=torch.bfloat16)[..., offset:]
+    return (xbc[..., : h * p].reshape(b, s, h, p), xbc[..., h * p : h * p + n],
+            xbc[..., h * p + n :])
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", 16),
+    ("conv slices", 16),
+    ("P 20", 8),
+    ("P 18, N 10", 4),
+    ("size-1 dims", 16),
+])
+def test_copy_width_follows_addresses_and_strides(case, want):
+    """16 bytes (TMA) at Zamba2's layout, 8 or 4 where P or N make rows of
+    40 or 36 bytes; a dim of size 1 is never stepped, so its stride counts
+    for nothing."""
+    if case == "contiguous":
+        xh, bm, cm = torch.zeros(2, 16, 3, 64, dtype=torch.bfloat16), *(
+            torch.zeros(2, 16, 64, dtype=torch.bfloat16) for _ in range(2))
+    elif case == "conv slices":
+        xh, bm, cm = _conv_slices(2, 16, 4, 64, 64)
+    elif case == "P 20":
+        xh, bm, cm = _conv_slices(2, 16, 3, 20, 12)
+    elif case == "P 18, N 10":
+        xh, bm, cm = _conv_slices(2, 16, 3, 18, 10)
+    else:
+        xh = torch.zeros(2 * 16 * 64, dtype=torch.bfloat16).as_strided(
+            (2, 16, 1, 64), (1024, 64, 7, 1))
+        bm = torch.zeros(1, 16, 64, dtype=torch.bfloat16).as_strided((1, 16, 64), (3, 64, 1))
+        cm = bm.clone()
+    assert copy_width(xh, bm, cm) == want
+
+
+def test_copy_width_refuses_odd_element_offsets():
+    xh, bm, cm = _conv_slices(2, 16, 3, 64, 64, offset=1)
+    with pytest.raises(ValueError, match="4-byte boundaries"):
+        copy_width(xh, bm, cm)
+
+
+def _cuda_heads_edges(group):
+    """The bf16 kernel's edges, as ``chip_smoke.py`` phase 3 runs them: H
+    of 1, G - 1, G, G + 1 and 65; S across the 64-step tile; (P, N) padded
+    to 64 (20 and 12, 18 and 10 give 8- and 4-byte copies); with and
+    without an initial state; contiguous and as conv-output slices."""
+    heads = sorted({h for h in (1, group - 1, group, group + 1, 65) if h >= 1})
+    for seed, (h, s, (p, n), init, strided) in enumerate(itertools.product(
+            heads, (1, 63, 64, 65, 257), ((20, 12), (48, 40), (64, 64), (18, 10)),
+            (False, True), (False, True))):
+        xh, dt, a, bm, cm, s0 = (None if t is None else torch.from_numpy(t).cuda()
+                                 for t in _heads_inputs(2, s, h, p, n, seed=seed, init=init))
+        if strided:
+            xbc = torch.cat([xh.reshape(2, s, h * p), bm, cm], dim=-1).bfloat16()
+            xh, bm, cm = (xbc[..., : h * p].reshape(2, s, h, p), xbc[..., h * p : h * p + n],
+                          xbc[..., h * p + n :])
+        else:
+            xh, bm, cm = xh.bfloat16(), bm.bfloat16(), cm.bfloat16()
+        yield f"H {h} S {s} P {p} N {n} init {init} strided {strided}", (xh, dt, a, bm, cm, s0)
+
+
 def test_cuda_kernel_matches_plain_version():
     """Needs a capability-9.0 card and nvcc: the kernel has no CPU mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    from repro_torch.kernels.ssd_scan.ops import heads_per_block
+
     for case in CASES + [parity.KernelCase("ssd_scan", (3, 100, 64, 64, 24), "float32"),
                          parity.KernelCase("ssd_scan", (2, 70, 32, 16, 1), "bfloat16")]:
         inputs = parity.make_inputs(case, device="cuda")
@@ -180,3 +246,31 @@ def test_cuda_kernel_matches_plain_version():
     got = ssd_scan_heads(xh.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16(), s0)
     want = ssd_scan_heads_ref(xh.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16(), s0)
     assert parity.max_err(got, want) <= TOLS["float32"]
+    widths = set()
+    for name, args in _cuda_heads_edges(heads_per_block()):
+        for dtype in (torch.bfloat16, torch.float32):
+            xh, dt, a, bm, cm, s0 = args
+            cast = (xh.to(dtype), dt, a, bm.to(dtype), cm.to(dtype), s0)
+            got = ssd_scan_heads(*cast)
+            assert all(torch.isfinite(t).all() for t in got), name
+            assert parity.max_err(got, ssd_scan_heads_ref(*cast)) <= TOLS["float32"], name
+        widths.add(copy_width(xh, bm, cm))
+    assert widths == {4, 8, 16}
+    # A second call and three replays of a CUDA graph equal the first call.
+    args = next(a for n, a in _cuda_heads_edges(heads_per_block()) if "H 65 S 257 P 64" in n
+                and "init True strided True" in n)
+    first = ssd_scan_heads(*args)
+    runs = [ssd_scan_heads(*args)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan_heads(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd_scan_heads(*args)
+    for _ in range(3):
+        graph.replay()
+        runs.append(tuple(t.clone() for t in out))
+    torch.cuda.synchronize()
+    assert all(torch.equal(r[0], first[0]) and torch.equal(r[1], first[1]) for r in runs)
