@@ -28,7 +28,16 @@ and each of which prints its wall time:
    element offset must raise; and the same replay check.
    Times each kernel, its plain version and, where one exists, the PyTorch
    library call computing the same function on the device (a CUDA graph
-   of many calls, CUDA events), and computes its bound from the inputs;
+   of many calls, CUDA events), and computes its bound from the inputs.
+   The two gathers also run over their edge grid (``chunk_gather/
+   edges.py``: 16-byte and scalar paths, slot views at offsets 0-3, rows
+   at run, warp and block edges, n of 0, 1, 3, 4, 5, S and S + 1,
+   out-of-range slots) and a replay check on each path; their times at
+   B = 8 print beside the launch floor (a one-element ``fill_`` in the
+   same harness), with host time per call, and ``chunk_gather_train``
+   is timed at the large shape (``train_4k`` as one batch: B = U = 256,
+   S = 4096) against its bytes bound, rotating 8 input sets and keeping
+   every output so that no call finds its bytes in the L2;
 4. training main path: ``repro_torch.launch.train`` at tinyllama-1.1b
    full width (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16),
    B=8, S=2048, ``--device-path gather --remat dots`` for 6 steps. Checks
@@ -36,7 +45,8 @@ and each of which prints its wall time:
    the first loss is near ln(vocab), and the staged batches equal a second
    loader's host stream; then profiles a 4-step run for the device's idle
    share and its heaviest kernels (fails if the trace holds no device
-   events or no gather kernel);
+   events or no gather kernel, or unless each staged batch is 2 device
+   operations on the stager's side stream: one copy and the gather);
 5. serving main path: ``repro_torch.launch.serve`` at tinyllama-1.1b full
    width, B=8, a 1920-token prompt, 128 new tokens. Checks 22 flash and
    22 x 127 decode launches, tokens in range, finite logits, and decode
@@ -66,6 +76,17 @@ path's, the hybrid serving path's, the card's name and power limit, the
 kernel table as JSON (five kernels), and ``{"ok": true, "device":
 {...}}``. Exits non-zero without a card, and in a directory without the
 port's sources.
+
+    python3 chip_smoke.py --gathers [--src OTHER_CHECKOUT/src]
+
+runs phases 1-2 for ``chunk_gather`` only, the gathers' timings and
+phase 4b's profile (the staged batch's device operations on the stager's
+side stream), and prints them as JSON last: with ``--src``, another
+checkout's port in the same harness (run the two in turns in one call to
+compare them). ``--src`` exists only for such turns against a ``git
+archive`` of the parent commit unpacked under ``build/trees/``, whose own
+smoke has no launch-floor or large-shape lines; it goes once the parent
+prints them itself.
 """
 
 from __future__ import annotations
@@ -88,6 +109,8 @@ SRC = HERE / "src"
 #: H100 SXM device memory rate and dense bf16 tensor-core rate (NVIDIA
 #: data sheet), bytes/s and FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
+#: Input sets the large gather rotates through in one graph (see time_gathers).
+LARGE_GATHER_SETS = 8
 BF16_FLOP_PER_S = 989e12
 #: f32 outside the tensor cores (NVIDIA data sheet, 700 W).
 F32_FLOP_PER_S = 67e12
@@ -255,17 +278,182 @@ def read_launches() -> dict:
 
 
 # --------------------------------------------------------------- phase 3
-def check_chunk_gather(device) -> dict:
-    """chunk_gather_train against its plain version (exact); timed at the
-    trainer's shapes (row_pad 8, as the stager packs)."""
+def launch_floor() -> float:
+    """The least time one launch takes in :func:`graph_ms`: a one-element
+    ``fill_`` on the card, in ms."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return graph_ms(lambda: x.fill_(1.0))
+
+
+def large_gather_sets(device, sets: int = LARGE_GATHER_SETS) -> tuple[int, list]:
+    """``sets`` input sets of the large shape: the repo's ``train_4k``
+    (S = 4096, global batch 256) staged as one batch, B = U = 256, slot rows
+    padded to 8 as the stager packs them; ``idx`` a permutation (every
+    record distinct, as exactly-once makes them), ``lens`` uniform in
+    [1, S + 1], from numpy with seed 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.shapes import get_shape
+
+    shape = get_shape("train_4k")
+    b, s = shape.global_batch, shape.seq_len
+    lp = -(-(s + 1) // 8) * 8
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(sets):
+        lens = rng.integers(1, s + 2, b)
+        slots = rng.integers(1, 32000, (b, lp))
+        idx = rng.permutation(b)
+        out.append(tuple(torch.as_tensor(np.asarray(a, np.int32), device=device)
+                         for a in (slots, lens, idx)))
+    return s, out
+
+
+def time_gathers(device) -> dict:
+    """Both gathers timed at B = 8 beside the launch floor (before and
+    after), with their plain versions and host time per call; then
+    ``chunk_gather_train`` at the large shape, each input set first held to
+    its plain version (tolerance 0), timed with the L2 defeated: each
+    captured call takes the next of 8 input sets and keeps its outputs, so
+    between two reads of one set some 100 MB pass through the 50 MB L2."""
+    import itertools
+
     import torch
 
     from repro_torch.kernels import parity
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
-    from repro_torch.kernels.chunk_gather.ref import chunk_gather_train_ref
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather, chunk_gather_train
+    from repro_torch.kernels.chunk_gather.ref import chunk_gather_ref, chunk_gather_train_ref
 
-    seq_len, batch = 2048, 8
-    trainer_case = parity.KernelCase("chunk_gather_train", (batch, seq_len, batch), "int32")
+    floor = [launch_floor()]
+    train_case = parity.KernelCase("chunk_gather_train", (8, 2048, 8), "int32")
+    slot, lens, idx = parity.make_inputs(train_case, device=device, row_pad=8)
+
+    def train():
+        return chunk_gather_train(slot, lens, idx, seq_len=2048)
+
+    def train_plain():
+        return chunk_gather_train_ref(slot, lens, idx, seq_len=2048)
+
+    raw_case = parity.KernelCase("chunk_gather", (8, 2176, 8), "int32")
+    rslots, rlens, ridx = parity.make_inputs(raw_case, device=device)
+
+    def raw():
+        return chunk_gather(rslots, rlens, ridx)
+
+    def raw_plain():
+        return chunk_gather_ref(rslots, rlens, ridx)
+
+    out = {"chunk_gather_train": turns(train, train_plain),
+           "chunk_gather": turns(raw, raw_plain)}
+    for name, (kernel, plain) in (("chunk_gather_train", (train, train_plain)),
+                                  ("chunk_gather", (raw, raw_plain))):
+        out[name].update(host_ms=host_ms(kernel), plain_host_ms=host_ms(plain))
+    floor.append(launch_floor())
+    out["floor_runs_ms"] = floor
+    out["floor_ms"] = statistics.median(floor)
+    # The stores alone: one fill_ of the trainer's three outputs.
+    grids = torch.empty((3, 8, 2048), dtype=torch.int32, device=device)
+    out["store_floor_ms"] = graph_ms(lambda: grids.fill_(0))
+    moved, rows = gather_bytes(slot, lens, idx, 2048)
+    out["chunk_gather_train"].update(bytes=moved, rows=rows, inputs=(slot, lens, idx),
+                                     shape=f"B=8 S=2048 Lp={slot.shape[1]}")
+    rows = torch.unique(ridx.long())
+    row_len = rslots.shape[1]
+    # idx read once; lens and the first min(len, L) tokens of each distinct
+    # selected row read once; (B, L) int32 tokens and f32 mask written once.
+    moved = (ridx.numel() * 4 + rows.numel() * 4
+             + int(rlens[rows].long().clamp(max=row_len).sum()) * 4 + ridx.numel() * row_len * 8)
+    out["chunk_gather"].update(bytes=moved, rows=rows.numel(), inputs=(rslots, rlens, ridx),
+                               shape=f"B=8 L={row_len}")
+
+    s, sets = large_gather_sets(device)
+    for i, inputs in enumerate(sets):
+        got = chunk_gather_train(*inputs, seq_len=s)
+        want = chunk_gather_train_ref(*inputs, seq_len=s)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"chunk_gather_train at the large shape, input set {i}: kernel disagrees "
+                 f"with its plain version (tolerance 0)")
+    del got, want
+    cycle, keep = itertools.cycle(sets), []
+
+    def large():
+        slots_, lens_, idx_ = next(cycle)
+        keep.append(chunk_gather_train(slots_, lens_, idx_, seq_len=s))
+
+    runs = []
+    for _ in range(2):
+        runs.append(graph_ms(large))
+        keep.clear()
+    moved = statistics.mean(gather_bytes(*inputs, s)[0] for inputs in sets)
+    bound_ms, _ = bound(0, moved)
+    out["large"] = {"shape": f"B=U={sets[0][2].numel()} S={s} Lp={sets[0][0].shape[1]}",
+                    "runs_ms": runs, "bytes": moved, "bound_ms": bound_ms,
+                    "share_of_bound": [bound_ms / r for r in runs], "sets": len(sets)}
+    return out
+
+
+def print_gather_times(t: dict) -> None:
+    floor = t["floor_runs_ms"]
+    print(f"launch floor (a one-element fill_, CUDA graph of 50 calls): "
+          f"{floor[0] * 1e3:.3f} / {floor[1] * 1e3:.3f} us (before / after the gathers); "
+          f"a fill_ of the trainer's three (8, 2048) outputs: "
+          f"{t['store_floor_ms'] * 1e3:.3f} us")
+    for name in ("chunk_gather_train", "chunk_gather"):
+        g = t[name]
+        print(f"{name} at {g['shape']}: device time per call (CUDA graph of 50 calls, CUDA "
+              f"events): kernel {g['runs_ms'][0] * 1e3:.3f} / {g['runs_ms'][1] * 1e3:.3f} us "
+              f"(floor {t['floor_ms'] * 1e3:.3f} us), plain {g['plain_runs_ms'][0] * 1e3:.3f} / "
+              f"{g['plain_runs_ms'][1] * 1e3:.3f} us; host time per call: kernel "
+              f"{g['host_ms'] * 1e3:.2f} us, plain {g['plain_host_ms'] * 1e3:.2f} us; bound "
+              f"{g['bytes'] / HBM_BYTES_PER_S * 1e6:.4f} us ({g['bytes']} bytes, {g['rows']} "
+              f"distinct slot rows, at 3.35 TB/s); library: none")
+    big = t["large"]
+    print(f"chunk_gather_train at {big['shape']} ({big['sets']} input sets rotated, outputs "
+          f"kept, each equal to its plain version): {big['runs_ms'][0] * 1e3:.3f} / {big['runs_ms'][1] * 1e3:.3f} us against a "
+          f"{big['bound_ms'] * 1e3:.3f} us bound ({big['bytes']:.0f} bytes at 3.35 TB/s): "
+          f"{big['share_of_bound'][0]:.1%} / {big['share_of_bound'][1]:.1%} of it")
+
+
+def check_gather_edges(device) -> None:
+    """Both gathers over their edge grid (``chunk_gather/edges.py``: both
+    paths, views at offsets 0-3, row lengths at run, warp and block edges,
+    n at 0, 1, 3, 4, 5, S, S + 1, out-of-range slots), exactly, then a
+    replay check of each on each path."""
+    import torch
+
+    from repro_torch.kernels.chunk_gather import edges
+
+    cases = edges.edge_cases(device)
+    for case in cases:
+        got, want = edges.run(case), edges.expected(case)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"gather edge case {case.name}: kernel disagrees with its plain version "
+                 f"(tolerance 0)")
+    paths = {c.vector for c in cases}
+    if paths != {True, False}:
+        fail(f"the gather edge grid took only the {'vector' if True in paths else 'scalar'} path")
+    print(f"gather edge grid: {len(cases)} cases ({sum(c.vector for c in cases)} on the 16-byte "
+          f"path, {sum(not c.vector for c in cases)} scalar) equal their plain versions")
+    for case in cases:
+        if case.inputs[0].shape[1] in (2056, 2176) and case.offset in (0, 1):
+            check_replay(f"{case.name} ({'16-byte' if case.vector else 'scalar'} path)",
+                         lambda c=case: torch.cat([t.view(torch.int32).flatten()
+                                                   for t in edges.run(c)]))
+
+
+def check_chunk_gather(device) -> None:
+    """chunk_gather_train against its plain version (exact) over the parity
+    grid and the trainer's shape (row_pad 8, as the stager packs), then
+    both gathers' edge grid."""
+    import torch
+
+    from repro_torch.kernels import parity
+
+    trainer_case = parity.KernelCase("chunk_gather_train", (8, 2048, 8), "int32")
     cases = [(c, 128) for c in parity.iter_cases("chunk_gather_train")] + [(trainer_case, 8)]
     for case, row_pad in cases:
         inputs = parity.make_inputs(case, device=device, row_pad=row_pad)
@@ -277,33 +465,34 @@ def check_chunk_gather(device) -> dict:
             fail(f"{case.name}: kernel disagrees with its plain version "
                  f"(max abs err {abs_err}, tolerance 0)")
         print(f"{case.name} row_pad {row_pad}: equal (max abs err {abs_err})")
-    slot, lens, idx = parity.make_inputs(trainer_case, device=device, row_pad=8)
+    check_gather_edges(device)
 
-    def kernel():
-        return chunk_gather_train(slot, lens, idx, seq_len=seq_len)
 
-    def plain():
-        return chunk_gather_train_ref(slot, lens, idx, seq_len=seq_len)
+def gather_row(name: str, times: dict) -> dict:
+    """A gather's kernel-table row: its B = 8 timing from ``times``, its
+    result there held to its plain version."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.chunk_gather import ops, ref
 
-    t = turns(kernel, plain)
-    k_host, p_host = host_ms(kernel), host_ms(plain)
-    moved, rows = gather_bytes(slot, lens, idx, seq_len)
-    bound_ms, bound_by = bound(0, moved)
-    abs_err = max(float((g.double() - w.double()).abs().max())
-                  for g, w in zip(kernel(), plain()))
-    print(f"chunk_gather_train at B={batch} S={seq_len} Lp={slot.shape[1]}: device time "
-          f"per call (CUDA graph of 50 calls, CUDA events): kernel "
-          f"{t['runs_ms'][0] * 1e3:.3f} / {t['runs_ms'][1] * 1e3:.3f} us, plain "
-          f"{t['plain_runs_ms'][0] * 1e3:.3f} / {t['plain_runs_ms'][1] * 1e3:.3f} us; host "
-          f"time per call: kernel {k_host * 1e3:.2f} us, plain {p_host * 1e3:.2f} us; bound "
-          f"{bound_ms * 1e3:.4f} us ({moved} bytes, {rows} distinct slot rows, at 3.35 TB/s)")
-    spec = parity.KERNELS["chunk_gather_train"]
-    return {
-        "name": "chunk_gather_train", "route": "cuda", "source": spec["source"],
-        "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "host_ms": k_host, "plain_host_ms": p_host,
-    }
+    t = times[name]
+    inputs = t["inputs"]
+    kw = {"seq_len": 2048} if name == "chunk_gather_train" else {}
+    got = getattr(ops, name)(*inputs, **kw)
+    want = getattr(ref, f"{name}_ref")(*inputs, **kw)
+    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    if abs_err != 0:
+        fail(f"{name} at {t['shape']}: max abs err {abs_err}, tolerance 0")
+    bound_ms, bound_by = bound(0, t["bytes"])
+    spec = parity.KERNELS[name]
+    row = {"name": name, "route": "cuda", "source": spec["source"],
+           "replaces": spec["replaces"], "launches": None, "max_abs_err": abs_err,
+           "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "runs_ms": t["runs_ms"],
+           "floor_ms": times["floor_ms"], "host_ms": t["host_ms"],
+           "plain_host_ms": t["plain_host_ms"], "bytes": t["bytes"]}
+    if name == "chunk_gather_train":
+        row["at_large_shape"] = times["large"]
+    return row
 
 
 def check_attention_grid(device) -> None:
@@ -611,15 +800,13 @@ def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64) -> d
             "bytes": moved}
 
 
-def check_chunk_gather_raw(device) -> dict:
+def check_chunk_gather_raw(device) -> None:
     """The raw chunk_gather against its plain version (exact) over its
     grid and a training-sized shape (B = 8 rows of L = 2176, a slot row of
-    the trainer's S = 2048 padded to 128), timed there."""
+    the trainer's S = 2048 padded to 128)."""
     import torch
 
     from repro_torch.kernels import parity
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather
-    from repro_torch.kernels.chunk_gather.ref import chunk_gather_ref
 
     main_case = parity.KernelCase("chunk_gather", (8, 2176, 8), "int32")
     for case in parity.iter_cases("chunk_gather") + [main_case]:
@@ -629,27 +816,6 @@ def check_chunk_gather_raw(device) -> dict:
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             fail(f"{case.name}: kernel disagrees with its plain version (tolerance 0)")
         print(f"{case.name}: equal")
-    slots, lens, idx = parity.make_inputs(main_case, device=device)
-    t = turns(lambda: chunk_gather(slots, lens, idx), lambda: chunk_gather_ref(slots, lens, idx))
-    rows = torch.unique(idx.long())
-    row_len = slots.shape[1]
-    # idx read once; lens and the first min(len, L) tokens of each distinct
-    # selected row read once; (B, L) int32 tokens and f32 mask written once.
-    moved = (idx.numel() * 4 + rows.numel() * 4
-             + int(lens[rows].long().clamp(max=row_len).sum()) * 4 + idx.numel() * row_len * 8)
-    bound_ms, bound_by = bound(0, moved)
-    pairs = zip(chunk_gather(slots, lens, idx), chunk_gather_ref(slots, lens, idx))
-    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
-    print(f"chunk_gather at B=8 L={row_len}: device time per call (CUDA graph of 50 calls): "
-          f"kernel {t['runs_ms'][0] * 1e3:.3f} / {t['runs_ms'][1] * 1e3:.3f} us, plain "
-          f"{t['plain_runs_ms'][0] * 1e3:.3f} / {t['plain_runs_ms'][1] * 1e3:.3f} us; bound "
-          f"{bound_ms * 1e3:.4f} us ({moved} bytes, {rows.numel()} distinct slot rows, at "
-          f"3.35 TB/s); library: none")
-    spec = parity.KERNELS["chunk_gather"]
-    return {"name": "chunk_gather", "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": 0, "main_path": None,
-            "max_abs_err": abs_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "bytes": moved}
 
 
 def check_ssd_grid(device) -> None:
@@ -934,21 +1100,23 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
 def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
     """From a profiler run: the device's idle share from ``start_marker``
     to the last device event (``steps`` steps), the device operations per
-    step, the heaviest kernels, and the launches of kernels whose name
-    holds ``kernel`` (fails without any)."""
+    step, the heaviest kernels, the launches of kernels whose name holds
+    ``kernel`` (fails without any), and over the whole run the device
+    operations and device time per launch on the streams that ran it."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trace_file = Path(work) / "trace.json"
         prof.export_chrome_trace(str(trace_file))
         events = json.loads(trace_file.read_text())["traceEvents"]
     start = min((e["ts"] for e in events if e.get("name") == start_marker), default=None)
-    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"])
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"],
+                     e.get("args", {}).get("stream"))
                     for e in events
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
     if start is None or not device:
         fail("the profiler trace has no step marker or no device events")
     end = max(d[1] for d in device)
     busy, cur_s, cur_e, by_name, ops = 0.0, None, None, {}, 0
-    for s_, e_, name in device:
+    for s_, e_, name, _ in device:
         s_, e_ = max(s_, start), min(e_, end)
         if e_ <= s_:
             continue
@@ -969,15 +1137,25 @@ def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
     for name, t in top:
         print(f"  {t / total:6.1%}  {t / 1e3:9.3f} ms  {name[:110]}")
     ours = sum(t for n, t in by_name.items() if kernel in n)
-    each = [e_ - s_ for s_, e_, name in device if kernel in name]
+    each = [e_ - s_ for s_, e_, name, _ in device if kernel in name]
     if not each:
         fail(f"the profiled path shows no {kernel} on the device")
+    streams = {stream for _, _, name, stream in device if kernel in name}
+    on_streams = [(e_ - s_, name) for s_, e_, name, stream in device if stream in streams]
+    kinds = {}
+    for _, name in on_streams:
+        kinds[name[:60]] = kinds.get(name[:60], 0) + 1
     print(f"  {kernel}: {ours / 1e3:.4f} ms of device time in the window "
           f"({ours / total:.4%}); {len(each)} launches in the whole run, "
-          f"{statistics.mean(each):.3f} us each")
+          f"{statistics.mean(each):.3f} us each; on its streams {sorted(streams)}: "
+          f"{len(on_streams) / len(each):.2f} device operations and "
+          f"{sum(d for d, _ in on_streams) / len(each):.3f} us of device time a launch "
+          f"({kinds})")
     return {"idle_share": idle, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
             "ops_per_step": ops / steps, "kernel_share": ours / total, "kernel_launches": len(each),
             "kernel_us_each": statistics.mean(each),
+            "stream_ops_per_launch": len(on_streams) / len(each),
+            "stream_us_per_launch": sum(d for d, _ in on_streams) / len(each),
             "top": [[name[:80], t / total] for name, t in top[:5]]}
 
 
@@ -1000,7 +1178,9 @@ def where_time_goes(argv) -> dict:
     return {"idle_share": out["idle_share"], "window_ms": out["window_ms"],
             "busy_ms": out["busy_ms"], "ops_per_step": out["ops_per_step"],
             "gather_launches": out["kernel_launches"],
-            "gather_us_each": out["kernel_us_each"]}
+            "gather_us_each": out["kernel_us_each"],
+            "side_stream_ops_per_batch": out["stream_ops_per_launch"],
+            "side_stream_us_per_batch": out["stream_us_per_launch"]}
 
 
 # --------------------------------------------------------------- phase 5
@@ -1260,15 +1440,15 @@ def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     return out
 
 
-def build_all() -> None:
+def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_PACKAGES)) as pool:
-        futures = {name: pool.submit(build.build, name) for name in KERNEL_PACKAGES}
+    with concurrent.futures.ThreadPoolExecutor(len(packages)) as pool:
+        futures = {name: pool.submit(build.build, name) for name in packages}
         logs = {name: f.result() for name, f in futures.items()}  # raises a failed build
-    print(f"built {', '.join(KERNEL_PACKAGES)} in {time.perf_counter() - t0:.2f} s")
+    print(f"built {', '.join(packages)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         if log is None:
             print(f"  {name}: cached")
@@ -1277,14 +1457,27 @@ def build_all() -> None:
                 print(f"  {name}: {line.strip()}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--gathers", action="store_true",
+                        help="run only phases 1-2 for chunk_gather, the gathers' timings "
+                             "(launch floor, B = 8, the large shape, host time) and phase "
+                             "4b's profile of the training stager; print them as JSON last")
+    parser.add_argument("--src", type=Path, default=SRC,
+                        help="the src/ directory whose repro_torch runs (default: this "
+                             "checkout's); with --gathers, to time another checkout in the "
+                             "same harness")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"no port sources at {SRC / 'repro_torch'}")
-    sys.path.insert(0, str(SRC))
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        fail(f"no port sources at {src / 'repro_torch'}")
+    sys.path.insert(0, str(src))
 
     from repro_torch.kernels.common import resolve_device
 
@@ -1309,12 +1502,29 @@ def main() -> int:
 
     # ---------------------------------------------------------- 2. build
     phase("2. build")
+    if args.gathers:
+        build_all(("chunk_gather",))
+        phase("3. the gathers' timings")
+        times = time_gathers(device)
+        print_gather_times(times)
+        for name in ("chunk_gather_train", "chunk_gather"):
+            times[name].pop("inputs")
+        phase("4b. where the training path's device time goes (torch.profiler)")
+        times["staging"] = where_time_goes(MAIN_ARGS)
+        phase(None)
+        print(card_line)
+        print(json.dumps({"gathers": times, "src": str(src)}))
+        return 0
     build_all()
 
     # ------------------------------------------------- 3. kernel parity
     phase("3. kernel parity (CUDA kernels vs plain PyTorch on the card)")
-    kernels = {"chunk_gather_train": check_chunk_gather(device),
-               "chunk_gather": check_chunk_gather_raw(device)}
+    check_chunk_gather(device)
+    check_chunk_gather_raw(device)
+    times = time_gathers(device)
+    print_gather_times(times)
+    kernels = {name: gather_row(name, times) for name in ("chunk_gather_train", "chunk_gather")}
+    kernels["chunk_gather"].update(launches=0, main_path=None)
     check_attention_grid(device)
     kernels["flash_attention"] = check_flash_main(device)
     kernels["decode_attention"] = check_decode_main(device)
@@ -1330,6 +1540,9 @@ def main() -> int:
 
     phase("4b. where the training path's device time goes (torch.profiler)")
     run["profile"] = where_time_goes(MAIN_ARGS)
+    if run["profile"]["side_stream_ops_per_batch"] != 2:
+        fail(f"a staged batch takes {run['profile']['side_stream_ops_per_batch']} device "
+             f"operations on the stager's side stream, not 2 (one copy and the gather)")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 5. serving path

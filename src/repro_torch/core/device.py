@@ -14,13 +14,15 @@ moves the tail off the train step's critical path:
   hand-written CUDA ``chunk_gather_train`` assembles tokens, targets and
   loss mask on the card (on the CPU its plain version does).
 
-On CUDA the staging thread copies each array through pinned host memory
-(``non_blocking=True``) and launches the gather on a side stream of its
-own, then records one event per batch. The consumer makes its current
-stream wait on that event and marks the staged tensors with
-``record_stream`` so the caching allocator never hands their memory out
-while the consumer's stream may still read them. On the CPU the copy is a
-memcpy on the staging thread, which still buys the overlap.
+On CUDA the staging thread packs a pack's three arrays into one pinned
+host buffer, copies it in one ``non_blocking`` copy and launches the
+gather on three views of the copy, all on a side stream of its own (two
+device operations a batch), then records one event per batch. The
+consumer makes its current stream wait on that event and marks the staged
+tensors with ``record_stream`` so the caching allocator never hands their
+memory out while the consumer's stream may still read them. On the CPU
+the packed buffer is the staged batch (a grid is copied), all on the
+staging thread, which still buys the overlap.
 
 Buffer lifetime: staged-but-unconsumed batches are tracked and released
 on teardown, abandoned consumers included, so a ``break`` mid-epoch never
@@ -107,8 +109,9 @@ class DeviceStager:
     """
 
     #: Slot-row column padding the packer must honour. The TPU reference
-    #: padded to its 128-lane width; the CUDA kernel loads scalar int32, so
-    #: a token-level 8 serves the CPU and the card alike.
+    #: padded to its 128-lane width; a multiple of 4 tokens lets the CUDA
+    #: kernel load the rows 16 bytes at a time, and 8 serves the CPU and
+    #: the card alike.
     row_pad = 8
 
     def __init__(
@@ -138,14 +141,37 @@ class DeviceStager:
             return len(self._inflight)
 
     # ---------------------------------------------------------------- stage
+    def _copy(self, host: torch.Tensor) -> torch.Tensor:
+        """A fresh host buffer's one copy to the device (queued on the
+        current stream on CUDA; on the CPU the buffer itself)."""
+        return host.to(self.device, non_blocking=True) if self._cuda else host
+
     def _put(self, arr) -> torch.Tensor:
         """One host array onto the device (through pinned memory on CUDA)."""
-        host = torch.from_numpy(np.ascontiguousarray(arr))
-        if not self._cuda:
-            return host.clone()
-        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        pinned.copy_(host)
-        return pinned.to(self.device, non_blocking=True)
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=self._cuda)
+        host.copy_(src)
+        return self._copy(host)
+
+    def _put_pack(self, item: dict) -> tuple:
+        """A pack's ``slot_tokens``, ``lens`` and ``idx`` onto the device in
+        one copy: one int32 host buffer laid out ``idx | lens | pad | slot
+        rows``, the pad putting the slot rows on a 16-byte boundary, and
+        three views of its device copy (the device allocation starts on 512
+        bytes)."""
+        slot, lens, idx = item["slot_tokens"], item["lens"], item["idx"]
+        b, (u, lp) = len(idx), slot.shape
+        rows_at = round_up(b + u, 4)
+        # Pinned on CUDA, from PyTorch's caching host allocator, which keeps
+        # the block until the copy that reads it is done.
+        host = torch.empty(rows_at + u * lp, dtype=torch.int32, pin_memory=self._cuda)
+        flat = host.numpy()
+        flat[:b] = idx
+        flat[b:b + u] = lens
+        flat[b + u:rows_at] = 0
+        flat[rows_at:].reshape(u, lp)[:] = slot
+        dev = self._copy(host)
+        return dev[rows_at:].view(u, lp), dev[b:b + u], dev[:b]
 
     def stage(self, item: dict) -> dict:
         """Ship one host batch/pack to the device; returns the device batch.
@@ -167,9 +193,7 @@ class DeviceStager:
         with torch.cuda.stream(self._side):
             if gather:
                 check_indices(item["idx"], item["slot_tokens"].shape[0])
-                slot = self._put(item["slot_tokens"])
-                lens = self._put(item["lens"])
-                idx = self._put(item["idx"])
+                slot, lens, idx = self._put_pack(item)
                 tokens, targets, loss_mask = chunk_gather_train(
                     slot, lens, idx,
                     seq_len=int(item["seq_len"]),

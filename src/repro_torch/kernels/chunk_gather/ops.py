@@ -10,30 +10,68 @@ count each kernel's launches, and only those.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import build
-from ..common import resolve_device
+from ..common import checked_cuda, resolve_device
 from .ref import chunk_gather_ref, chunk_gather_train_ref
 
-__all__ = ["check_indices", "chunk_gather", "chunk_gather_train"]
+__all__ = ["check_indices", "chunk_gather", "chunk_gather_train", "vector_path"]
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("chunk_gather")
-    fn = lib.chunk_gather_train_launch
-    if fn.argtypes is None:
-        # Pointers and the stream as c_void_p: never cut to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.chunk_gather_error_string.argtypes = [ctypes.c_int]
-        lib.chunk_gather_error_string.restype = ctypes.c_char_p
-        raw = lib.chunk_gather_launch
-        raw.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        raw.restype = ctypes.c_int
+    return _bind(build.load("chunk_gather"))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' C signatures on a build of ``chunk_gather.cu``."""
+    # Pointers and the stream as c_void_p: never cut to 32 bits.
+    lib.chunk_gather_train_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.chunk_gather_train_launch.restype = ctypes.c_int
+    lib.chunk_gather_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.chunk_gather_launch.restype = ctypes.c_int
+    lib.chunk_gather_error_string.argtypes = [ctypes.c_int]
+    lib.chunk_gather_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(device: torch.device, name: str, *args) -> None:
+    """Launch ``name`` on ``device``'s current stream; raise if refused.
+
+    Kept lean, since at the trainer's shape the host path costs more than
+    the kernel: the card's capability check is cached per card, the stream
+    is read as a raw handle (no Stream object), and the device guard is
+    entered only when the card is not the current one.
+    """
+    if device.type != "cuda":
+        resolve_device(device)  # raises: the kernels run on CUDA or the CPU only
+    index = device.index
+    checked_cuda(index)  # raises unless a capability-9.0 card (checked once per card)
+    lib = _lib()
+    fn = getattr(lib, f"{name}_launch")
+    if torch.cuda.current_device() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: " + lib.chunk_gather_error_string(rc).decode())
+
+
+def vector_path(chunk_tokens: torch.Tensor, row_len: int) -> bool:
+    """Whether the kernels take their 16-byte path for these slot rows and
+    output rows of ``row_len`` tokens: the slot buffer starts on 16 bytes,
+    and its row stride and ``row_len`` are multiples of 4 tokens (the
+    outputs, one fresh allocation, then start each row on 16 bytes too).
+    Otherwise they take their scalar path."""
+    return (row_len % 4 == 0 and chunk_tokens.shape[1] % 4 == 0
+            and chunk_tokens.data_ptr() % 16 == 0)
 
 
 def check_indices(indices, num_slots: int) -> None:
@@ -94,24 +132,17 @@ def chunk_gather_train(chunk_tokens, record_lens, indices, *, seq_len, pad_id=0)
         return chunk_gather_train_ref(
             chunk_tokens, record_lens, indices, seq_len=seq_len, pad_id=pad_id
         )
-    resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
     b, u, lp = indices.shape[0], chunk_tokens.shape[0], chunk_tokens.shape[1]
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
-    tokens = torch.empty((b, seq_len), dtype=torch.int32, device=device)
-    targets = torch.empty((b, seq_len), dtype=torch.int32, device=device)
-    mask = torch.empty((b, seq_len), dtype=torch.float32, device=device)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.chunk_gather_train_launch(
+    # One allocation, three views: tokens, targets, and the mask as f32.
+    tokens, targets, mask = torch.empty((3, b, seq_len), dtype=torch.int32,
+                                        device=device).unbind()
+    mask = mask.view(torch.float32)
+    _launch(device, "chunk_gather_train",
             chunk_tokens.data_ptr(), record_lens.data_ptr(), indices.data_ptr(),
             tokens.data_ptr(), targets.data_ptr(), mask.data_ptr(),
-            u, b, seq_len, lp, int(pad_id), stream,
-        )
-    if rc != 0:
-        raise RuntimeError("chunk_gather_train launch failed: "
-                           + lib.chunk_gather_error_string(rc).decode())
+            u, b, seq_len, lp, int(pad_id), int(vector_path(chunk_tokens, seq_len)))
     chunk_gather_train.launches += 1
     return tokens, targets, mask
 
@@ -132,22 +163,15 @@ def chunk_gather(chunk_tokens, record_lens, indices, *, pad_id=0):
     if device.type == "cpu":
         check_indices(indices, chunk_tokens.shape[0])
         return chunk_gather_ref(chunk_tokens, record_lens, indices, pad_id=pad_id)
-    resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
     b, (u, row_len) = indices.shape[0], chunk_tokens.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
-    tokens = torch.empty((b, row_len), dtype=torch.int32, device=device)
-    mask = torch.empty((b, row_len), dtype=torch.float32, device=device)
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.chunk_gather_launch(
+    tokens, mask = torch.empty((2, b, row_len), dtype=torch.int32, device=device).unbind()
+    mask = mask.view(torch.float32)
+    _launch(device, "chunk_gather",
             chunk_tokens.data_ptr(), record_lens.data_ptr(), indices.data_ptr(),
-            tokens.data_ptr(), mask.data_ptr(), u, b, row_len, int(pad_id), stream,
-        )
-    if rc != 0:
-        raise RuntimeError("chunk_gather launch failed: "
-                           + lib.chunk_gather_error_string(rc).decode())
+            tokens.data_ptr(), mask.data_ptr(), u, b, row_len, int(pad_id),
+            int(vector_path(chunk_tokens, row_len)))
     chunk_gather.launches += 1
     return tokens, mask
 

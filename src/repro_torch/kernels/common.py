@@ -10,10 +10,11 @@ when the caller asks for it, and then the kernels' plain versions run.
 from __future__ import annotations
 
 import functools
+import statistics
 
 import torch
 
-__all__ = ["resolve_device", "round_up", "zeroed_counters"]
+__all__ = ["checked_cuda", "graph_ms", "resolve_device", "round_up", "zeroed_counters"]
 
 #: Compute capability the CUDA sources are built for (``sm_90a``).
 CAPABILITY = (9, 0)
@@ -43,11 +44,11 @@ def resolve_device(device=None) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (--device cpu) to run on the CPU"
         )
-    return _checked_cuda(dev.index if dev.index is not None else torch.cuda.current_device())
+    return checked_cuda(dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 @functools.lru_cache(maxsize=None)
-def _checked_cuda(index: int) -> torch.device:
+def checked_cuda(index: int) -> torch.device:
     """``cuda:index`` once its capability has been checked (once per card)."""
     cap = torch.cuda.get_device_capability(index)
     if cap != CAPABILITY:
@@ -78,3 +79,30 @@ def zeroed_counters(owner: str, device: torch.device, n: int) -> torch.Tensor:
                            device=device)
         _counters[key] = have
     return have
+
+
+def graph_ms(call, calls: int = 10, reps: int = 5) -> float:
+    """Device ms per call of ``call`` on the card: ``calls`` calls captured
+    in one CUDA graph, the median of ``reps`` replays between CUDA events
+    (the kernel sweeps' timer)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / calls)
+    return statistics.median(samples)

@@ -14,6 +14,7 @@ the plain version to the JAX function over the same grid.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 
 import numpy as np
@@ -197,11 +198,17 @@ def _leaves(out) -> list:
 def max_err(out, ref) -> float:
     """Scale-normalised max abs error, maxed over output leaves:
     ``max |out - ref| / (max |ref| + 1e-6)`` in f32 (the reference's
-    ``_max_err``)."""
+    ``_max_err``), and ``inf`` where any difference is not finite: a NaN
+    is never folded to 0 as ``max(0.0, nan)`` would fold it."""
     worst = 0.0
     for o, r in zip(_leaves(out), _leaves(ref)):
+        if not o.numel():
+            continue
         o32 = o.detach().float()
         r32 = r.detach().float().to(o32.device)
+        diff = float((o32 - r32).abs().max())  # NaN if any difference is NaN
+        if not math.isfinite(diff):
+            return math.inf
         scale = float(r32.abs().max()) + 1e-6 if r32.numel() else 1e-6
-        worst = max(worst, float((o32 - r32).abs().max()) / scale if o32.numel() else 0.0)
+        worst = max(worst, diff / scale)
     return worst

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import build
+from ..common import graph_ms
 from . import ops
 
 VARIANTS = [(g, st) for g in (1, 2, 4) for st in (2, 3)]
@@ -94,30 +95,6 @@ def _runner(lib, xh, dt, a, bm, cm):
     return run, y, final
 
 
-def _graph_ms(run, calls: int = 10, reps: int = 5) -> float:
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            run()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            run()
-    graph.replay()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / calls)
-    return statistics.median(samples)
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON summary here")
@@ -140,7 +117,7 @@ def main(argv=None) -> int:
     times = {v: [] for v in VARIANTS}
     for order in (VARIANTS, VARIANTS[::-1]):
         for v in order:
-            times[v].append(_graph_ms(runs[v][0]))
+            times[v].append(graph_ms(runs[v][0]))
     rows = []
     for v in VARIANTS:
         run, usage, equal = runs[v]

@@ -8,15 +8,19 @@ JAX is imported inside the tests that use it, so that on a machine with a
 card and no JAX this file still collects and the CUDA test runs.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import parity
+from repro_torch.kernels.chunk_gather import edges
 from repro_torch.kernels.chunk_gather.ops import (
     check_indices,
     chunk_gather,
     chunk_gather_train,
+    vector_path,
 )
 from repro_torch.kernels.chunk_gather.ref import chunk_gather_ref, chunk_gather_train_ref
 
@@ -81,6 +85,17 @@ def test_port_registry_copies_reference_shapes_inputs_and_tolerance():
         assert len(got) == len(want)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_max_err_is_inf_for_a_non_finite_difference():
+    """parity.max_err never folds a NaN to 0 (``max(0.0, nan)`` is 0.0)."""
+    ref = torch.tensor([1.0, 2.0, 4.0])
+    assert parity.max_err(torch.tensor([1.0, float("nan"), 4.0]), ref) == math.inf
+    assert parity.max_err(torch.tensor([1.0, float("inf"), 4.0]), ref) == math.inf
+    nan_leaf = (ref, torch.tensor([float("nan")]))
+    assert parity.max_err(nan_leaf, (ref, torch.tensor([0.0]))) == math.inf
+    assert parity.max_err(ref + 0.4, ref) == pytest.approx(0.1, rel=1e-5)
+    assert parity.max_err(ref, ref) == 0.0
 
 
 def _edge_inputs(seq_len, lens, lp, idx, seed=0):
@@ -208,3 +223,100 @@ def test_raw_cuda_kernel_equals_plain_version():
         assert chunk_gather.launches == before + 1
         for g, w in zip(got, chunk_gather_ref(*inputs)):
             assert torch.equal(g, w), case.name
+
+
+# ---------------------------------------------------------------- edge grid
+N_EDGES = (len(edges.TRAIN_SEQ_LENS) + len(edges.RAW_ROW_LENS)) * len(edges.OFFSETS)
+
+
+@pytest.mark.parametrize("i", range(N_EDGES))
+def test_edge_grid_matches_jax(i):
+    """Each edge case through the JAX kernel (interpret mode) on the same
+    inputs, out-of-range slots pointed at an extra empty slot: the grid's
+    expected output, which the CUDA tests and chip_smoke.py hold the
+    kernels to, equals it whole, and the port's wrapper on the case's own
+    inputs (a view at the case's offset) equals its in-range rows."""
+    case = edges.edge_cases()[i]
+    slots, lens, idx = (t.numpy() for t in edges.with_empty_slot(case))
+    if case.seq_len is None:
+        want = _jax_raw(slots, lens, idx, case.pad_id)
+    else:
+        want = _jax(slots, lens, idx, case.seq_len, case.pad_id)
+    _assert_equal([t.numpy() for t in edges.expected(case)], want)
+    got = [t.numpy() for t in edges.run(case, in_range_only=True)]
+    k = got[0].shape[0]
+    assert 0 < k < idx.shape[0], case.name  # the out-of-range slots come last
+    _assert_equal(got, [w[:k] for w in want])
+
+
+def test_edge_grid_out_of_range_slots_raise_on_the_host():
+    """On the CPU the wrappers refuse each case's out-of-range slots."""
+    for case in edges.edge_cases():
+        with pytest.raises(IndexError, match="out of range"):
+            edges.run(case)
+
+
+def test_edge_grid_covers_both_paths_and_the_tight_rows():
+    cases = edges.edge_cases()
+    assert {c.vector for c in cases if c.seq_len is not None} == {True, False}
+    assert {c.vector for c in cases if c.seq_len is None} == {True, False}
+    lp = {c.seq_len: c.inputs[0].shape[1] for c in cases if c.seq_len is not None}
+    assert lp[7] == 8 and lp[100] == 104 and lp[2048] == 2056  # S + 1, S + 4, S + 8
+    for c in cases:
+        n = set(c.inputs[1].tolist())
+        top = c.inputs[0].shape[1] if c.seq_len is None else c.seq_len + 1
+        assert {0, 1, 3, 4, 5, top} <= n, c.name
+
+
+def test_vector_path_needs_aligned_base_and_whole_quads():
+    buf = torch.zeros(8 * 20 + 4, dtype=torch.int32)
+    assert vector_path(buf[:160].view(8, 20), 16)
+    assert not vector_path(buf[:160].view(8, 20), 18)            # output rows
+    assert not vector_path(buf[:152].view(8, 19), 16)            # slot row stride
+    for off in (1, 2, 3):
+        assert not vector_path(buf[off:off + 160].view(8, 20), 16)  # base
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+def test_cuda_edge_grid_equals_plain_version():
+    """Needs a capability-9.0 card and nvcc: both gathers on both paths."""
+    _needs_card()
+    cases = edges.edge_cases("cuda")
+    assert {c.vector for c in cases} == {True, False}
+    for case in cases:
+        counter = chunk_gather if case.seq_len is None else chunk_gather_train
+        before = counter.launches
+        got = edges.run(case)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        for g, w in zip(got, edges.expected(case)):
+            assert torch.equal(g, w), case.name
+
+
+def test_cuda_graph_replay_equals_first_call():
+    """Needs a capability-9.0 card and nvcc: each gather, on each path,
+    captured in a CUDA graph and replayed three times, bit for bit."""
+    _needs_card()
+    cases = [c for c in edges.edge_cases("cuda") if c.inputs[0].shape[1] in (2056, 2176)
+             and c.offset in (0, 1)]
+    assert len(cases) == 4
+    for case in cases:
+        first = [t.clone() for t in edges.run(case)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            edges.run(case)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = edges.run(case)
+        for _ in range(3):
+            for t in out:
+                t.fill_(-7)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(o, f) for o, f in zip(out, first)), case.name

@@ -44,6 +44,51 @@ def test_pack_dedup_and_padding():
     assert lens[0] == 9 and lens[1] == 5
 
 
+def test_pack_views_equal_pack_records():
+    """The one staged buffer holds idx | lens | pad | slot rows; its three
+    views equal pack_records' arrays, the slot rows on a 16-byte boundary."""
+    rng = np.random.default_rng(0)
+    recs = [rng.integers(1, 97, n).astype(np.int32) for n in (5, 40, 17, 33, 1)]
+    returned = np.asarray([3, 9, 3, 4, 8])
+    packed = pack_records(recs, returned, seq_len=32, row_pad=DeviceStager.row_pad)
+    stager = DeviceStager(device="cpu")
+    views = stager._put_pack(HostPack(slot_tokens=packed[0], lens=packed[1], idx=packed[2]))
+    for view, arr in zip(views, packed):
+        assert view.dtype == torch.int32 and view.is_contiguous()
+        np.testing.assert_array_equal(view.numpy(), arr)
+    slot, lens, idx = views
+    assert len({v.untyped_storage().data_ptr() for v in views}) == 1
+    assert idx.storage_offset() == 0 and lens.storage_offset() == idx.numel()
+    assert slot.storage_offset() % 4 == 0 and slot.data_ptr() % 16 == 0
+    assert slot.storage_offset() - (idx.numel() + lens.numel()) < 4
+
+
+@pytest.mark.parametrize("device_path,copies", [("gather", 1), ("grid", 3)])
+def test_one_copy_per_staged_batch(tmp_path, monkeypatch, device_path, copies):
+    """A staged pack is one host->device copy (the gather's three inputs in
+    one buffer); an assembled batch stays three."""
+    made = []
+    real = DeviceStager._copy
+
+    def counted(self, host):
+        made.append(host.numel())
+        return real(self, host)
+
+    monkeypatch.setattr(DeviceStager, "_copy", counted)
+    store, loader = build_loader(tmp_path, nodes=2, batch_per_node=4)
+    host = [grids(b) for b in loader.epoch(0)]
+    stager = DeviceStager(device="cpu")
+    if device_path == "gather":
+        staged = [grids(b) for b in loader.epoch_device(0, stager)]
+    else:
+        staged = [grids(b) for b in stager.stream(loader.epoch_async(0))]
+    assert len(staged) == len(host) == stager.stats.steps > 0
+    assert len(made) == copies * stager.stats.steps
+    for h, d in zip(host, staged):
+        for a, b in zip(h, d):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("nodes,batch_per_node", [(1, 8), (2, 4)])
 def test_epoch_device_matches_host_epoch_bytes(tmp_path, nodes, batch_per_node):
     store, loader = build_loader(tmp_path, nodes=nodes, batch_per_node=batch_per_node)
