@@ -69,24 +69,34 @@ and each of which prints its wall time:
    argmax agreeing on 7 of 8 rows) and all 38 SSM and conv states, and
    reads the states one token stale as a planted fault, which the bound
    must catch; then profiles the prefill (ssd_scan's share of device time)
-   and 16 decode steps (the device's idle share).
+   and 16 decode steps (the device's idle share);
+8. data-service main path: ``repro_torch.launch.data_service --serve`` in
+   a subprocess (1024 records of mean length 2048, vocab 32000,
+   ``--co-refill``), the training path of phase 4 through it
+   (``--data-server SOCK --device-path stage``) and a co-tenant job
+   consuming epoch 0 over its own ``RedoxClient`` in a thread of this
+   script. Checks 6 finite losses, the first near ln(vocab), both jobs'
+   streams byte for byte against in-process loaders of their specs on the
+   server's store, no gather launch (ring frames ship assembled grids),
+   and reads the server's storage bytes against the two jobs' demand;
+   profiles 4 steps of the same path for its idle share. Then
+   ``--autotune --device-path gather --steps 3`` on a store the trainer
+   builds: the calibrated choice, one gather launch a staged batch, and
+   the staged batches against a loader on the reopened store. The server
+   is stopped in a ``finally``; its stderr is shown if it dies or a check
+   fails.
 
-The last six lines are the training path's numbers as JSON, the serving
-path's, the hybrid serving path's, the card's name and power limit, the
-kernel table as JSON (five kernels), and ``{"ok": true, "device":
-{...}}``. Exits non-zero without a card, and in a directory without the
-port's sources.
+The last seven lines are the training path's numbers as JSON, the serving
+path's, the hybrid serving path's, the data-service path's, the card's
+name and power limit, the kernel table as JSON (five kernels), and
+``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
+a directory without the port's sources.
 
-    python3 chip_smoke.py --gathers [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --gathers
 
 runs phases 1-2 for ``chunk_gather`` only, the gathers' timings and
 phase 4b's profile (the staged batch's device operations on the stager's
-side stream), and prints them as JSON last: with ``--src``, another
-checkout's port in the same harness (run the two in turns in one call to
-compare them). ``--src`` exists only for such turns against a ``git
-archive`` of the parent commit unpacked under ``build/trees/``, whose own
-smoke has no launch-floor or large-shape lines; it goes once the parent
-prints them itself.
+side stream), and prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -149,6 +159,20 @@ HYBRID_AGREEMENT_STEP = 255
 #: against the same prefill, and fails unless that reading lies above the
 #: bound: the bound must tell a state that missed one token from a sound one.
 HYBRID_STATE_TOL = {"ssm": 1e-1, "conv": 5e-2}
+#: Phase 8: the data server's store (1024 records of mean length 2048 at
+#: tinyllama's vocab) and the trainer through it at phase 4's width.
+DATA_SERVICE_ARGS = ["--num-docs", "1024", "--seq-len", "2048", "--vocab-size", "32000",
+                     "--co-refill"]
+SERVED_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--job-id", "job0", "--device-path",
+               "stage", "--batch", "8", "--seq-len", "2048", "--nodes", "2", "--remat",
+               "dots", "--steps", "6"]
+#: The co-tenant job's session: the trainer's shape, seeds of its own
+#: (the trainer's are 2 and 3 at ``--seed 0``).
+CO_TENANT_SPEC = {"seed": 12, "sampler_seed": 13, "num_nodes": 2, "batch_per_node": 4,
+                  "seq_len": 2048, "remote_memory_limit_bytes": 1_000_000}
+AUTOTUNE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
+                 "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
+                 "--autotune", "--steps", "3"]
 
 
 class PhaseClock:
@@ -1159,8 +1183,11 @@ def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
             "top": [[name[:80], t / total] for name, t in top[:5]]}
 
 
-def where_time_goes(argv) -> dict:
-    """Profile a 4-step run of the training path from its third step."""
+def profile_training(argv, marker: str) -> tuple[dict, int]:
+    """Profile a 4-step run of the training path from its third step;
+    ``marker`` names the device operation that finds the stager's side
+    stream. Returns :func:`device_profile`'s numbers and the run's staged
+    batches."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.launch.train import parse_args, train
@@ -1172,9 +1199,15 @@ def where_time_goes(argv) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         args = parse_args(argv + ["--workdir", work, "--steps", "4"])
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            train(args, on_batch=mark)  # ends in torch.cuda.synchronize()
+            summary = train(args, on_batch=mark)  # ends in torch.cuda.synchronize()
     print("steps 3-4:")
-    out = device_profile(prof, "chip_smoke.step2", "chunk_gather_train_kernel", 2)
+    return device_profile(prof, "chip_smoke.step2", marker, 2), summary["device_stats"].steps
+
+
+def where_time_goes(argv) -> dict:
+    """Phase 4b: the training path's profile, its side stream found by the
+    gather."""
+    out, _ = profile_training(argv, "chunk_gather_train_kernel")
     return {"idle_share": out["idle_share"], "window_ms": out["window_ms"],
             "busy_ms": out["busy_ms"], "ops_per_step": out["ops_per_step"],
             "gather_launches": out["kernel_launches"],
@@ -1440,6 +1473,266 @@ def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     return out
 
 
+# --------------------------------------------------------------- phase 8
+class DataServer:
+    """``repro_torch.launch.data_service --serve`` in a subprocess, on a
+    store it builds under ``work``. It needs no card. Stopped by
+    :meth:`stop`; :meth:`stderr` shows what it wrote to its standard
+    error."""
+
+    def __init__(self, work: Path):
+        import os
+
+        self.sock, self.store = work / "svc.sock", work / "store"
+        self._out, self._err = work / "server.out", work / "server.err"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+        with open(self._out, "w") as out, open(self._err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.data_service", "--serve",
+                 str(self.sock), "--store-dir", str(self.store), *DATA_SERVICE_ARGS],
+                cwd=HERE, env=env, stdout=out, stderr=err,
+            )
+
+    def wait_ready(self, timeout: float = 300.0) -> None:
+        deadline = time.monotonic() + timeout
+        while "serving on" not in self._out.read_text():
+            self.check_alive()
+            if time.monotonic() > deadline:
+                fail(f"the data server did not start serving in {timeout:.0f} s")
+            time.sleep(0.2)
+        print(self._out.read_text().strip())
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            fail(f"the data server exited early with code {self.proc.returncode}")
+
+    def stderr(self) -> str:
+        return self._err.read_text()
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)  # serve_forever stops on ^C
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+#: What phase 8 holds equal: a staged batch's grids; a ring frame's grids,
+#: step and returned record ids.
+GRID_KEYS = ("tokens", "targets", "loss_mask")
+FRAME_KEYS = GRID_KEYS + ("step", "returned")
+
+
+def batch_digest(batch, keys=GRID_KEYS) -> str:
+    """A digest of a batch's ``keys`` (device or host tensors, numpy, ints)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in keys:
+        v = batch[k]
+        v = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+        h.update(k.encode() + str(v.dtype).encode() + str(v.shape).encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def host_digests(spec, store, steps=None, keys=GRID_KEYS) -> list:
+    """Digests of an in-process loader's epoch 0 for ``spec`` on ``store``
+    (its first ``steps`` batches, or all)."""
+    from repro_torch.core import RedoxLoader
+
+    batches = RedoxLoader.from_spec(spec, store).epoch(0)
+    return [batch_digest(b, keys) for b in itertools.islice(batches, steps)]
+
+
+def co_tenant(sock: Path, spec, start, trainer_done, out: dict) -> None:
+    """Job ``job1``: once ``start`` is set, consume epoch 0 over its own
+    ``RedoxClient``; after ``trainer_done``, read the server's stats."""
+    from repro_torch.service.transport import RedoxClient
+
+    try:
+        if not start.wait(timeout=600):
+            raise TimeoutError("the trainer never took its first batch")
+        with RedoxClient(sock, spec, job_id="job1") as client:
+            t0 = time.perf_counter()
+            out["digests"] = [batch_digest(b, FRAME_KEYS) for b in client.epoch(0)]
+            out["epoch_s"] = time.perf_counter() - t0
+            if not trainer_done.wait(timeout=600):
+                raise TimeoutError("the trainer did not finish")
+            out["stats"] = client.stats()
+    except Exception as e:  # the phase fails on it in the main thread
+        out["error"] = e
+
+
+def data_service_path() -> dict:
+    """Phase 8: the trainer through a data server beside a co-tenant job,
+    its profile, then the autotuned gather path."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        server = DataServer(Path(work))
+        try:
+            server.wait_ready()
+            run = served_training(server)
+            server.check_alive()
+            run["profile"] = where_served_time_goes(server)
+            server.check_alive()
+        except BaseException:
+            print(f"data server stderr:\n{server.stderr()}", file=sys.stderr, flush=True)
+            raise
+        finally:
+            server.stop()
+    run["autotune"] = autotuned_training()
+    return run
+
+
+def served_training(server: DataServer) -> dict:
+    """Train through the server while ``job1`` consumes epoch 0 beside it;
+    hold both streams to in-process loaders on the server's store. The
+    co-tenant opens its session after the trainer's first batch, once the
+    trainer's epoch is planned, so each job's plan is its solo one."""
+    import threading
+
+    import torch
+
+    from repro_torch.core import ChunkStore, SessionSpec
+    from repro_torch.launch.train import parse_args, train
+
+    vocab, co_spec = 32000, SessionSpec(**CO_TENANT_SPEC)
+    start, trainer_done, tenant = threading.Event(), threading.Event(), {}
+    thread = threading.Thread(target=co_tenant, daemon=True,
+                              args=(server.sock, co_spec, start, trainer_done, tenant))
+    thread.start()
+    staged = []
+
+    def on_batch(step, feed):
+        staged.append(batch_digest(feed))
+        start.set()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        args = parse_args(SERVED_ARGS + ["--data-server", str(server.sock), "--workdir", work])
+        torch.cuda.synchronize()
+        zero_launches()
+        try:
+            summary = train(args, on_batch=on_batch)
+        finally:
+            launches = read_launches()
+            start.set()
+            trainer_done.set()
+    thread.join(timeout=900)
+    if thread.is_alive():
+        fail("the co-tenant job did not finish epoch 0")
+    if "error" in tenant:
+        fail(f"the co-tenant job failed: {tenant['error']!r}")
+    stats = summary["device_stats"]
+    losses = summary["losses"]
+    print(f"losses {losses}")
+    print(f"tokens/sec {summary['tokens_per_s']:.1f} (whole run), "
+          f"{summary['steady_tokens_per_s']:.1f} (steps 2-{len(losses)}); "
+          f"{stats.steps} staged batches, {stats.kernel_steps} gathered on the card; "
+          f"kernel launches {launches}")
+    if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
+        fail(f"expected {args.steps} finite losses, got {losses}")
+    if abs(losses[0] - math.log(vocab)) > 2.0:
+        fail(f"first loss {losses[0]} is not near ln({vocab}) at random init")
+    if len(staged) != args.steps:
+        fail(f"the trainer saw {len(staged)} staged batches, expected {args.steps}")
+    if launches["chunk_gather_train"] != 0 or stats.kernel_steps != 0:
+        fail(f"chunk_gather_train launched {launches['chunk_gather_train']} times on the "
+             f"data-server path: ring frames ship assembled grids")
+    store = ChunkStore.open(server.store)
+    try:
+        if staged != host_digests(summary["spec"], store, args.steps):
+            fail("the trainer's batches through the server differ from an in-process "
+                 "loader of its spec")
+        want = host_digests(co_spec, store, keys=FRAME_KEYS)
+    finally:
+        store.close()
+    if tenant["digests"] != want:
+        fail(f"the co-tenant's {len(tenant['digests'])} batches differ from an in-process "
+             f"loader of its spec ({len(want)} batches)")
+    print(f"both streams equal their in-process loaders: trainer {len(staged)} batches, "
+          f"co-tenant {len(want)} batches in {tenant['epoch_s']:.3f} s "
+          f"({tenant['epoch_s'] / len(want) * 1e3:.3f} ms a frame, host)")
+    rep = tenant["stats"]
+    agg = rep["aggregate"]
+    demand = {job: int(v) for job, v in rep["bytes_per_job"].items()}
+    print(f"server: storage bytes read {agg['physical_bytes']:,d}, demand {demand} "
+          f"(sum {sum(demand.values()):,d}); shared hits {agg['shared_hits']}, "
+          f"shared bytes {agg['shared_bytes']:,d}, co-refill hits {agg['co_refill_hits']}")
+    return {"losses": losses, "tokens_per_s": summary["tokens_per_s"],
+            "steady_tokens_per_s": summary["steady_tokens_per_s"],
+            "staged_batches": stats.steps, "gather_launches": launches["chunk_gather_train"],
+            "storage_bytes": int(agg["physical_bytes"]), "demand_bytes": demand,
+            "shared_hits": int(agg["shared_hits"]), "co_tenant_batches": len(want),
+            "co_tenant_epoch_s": tenant["epoch_s"],
+            "co_tenant_ms_per_frame": tenant["epoch_s"] / len(want) * 1e3}
+
+
+def where_served_time_goes(server: DataServer) -> dict:
+    """The data-server path's profile. It runs no gather: a staged batch is
+    three pinned copies on the stager's side stream, which is found by
+    them."""
+    out, staged = profile_training(SERVED_ARGS + ["--data-server", str(server.sock)],
+                                   "HtoD (Pinned")
+    ops = out["stream_ops_per_launch"] * out["kernel_launches"] / staged
+    print(f"{staged} staged batches: {ops:.2f} device operations a staged batch on the "
+          f"stager's side stream")
+    return {"idle_share": out["idle_share"], "window_ms": out["window_ms"],
+            "busy_ms": out["busy_ms"], "ops_per_step": out["ops_per_step"],
+            "side_stream_ops_per_batch": ops,
+            "side_stream_us_per_batch":
+                out["stream_us_per_launch"] * out["kernel_launches"] / staged}
+
+
+def autotuned_training() -> dict:
+    """``--autotune --device-path gather``: the trainer builds its store,
+    calibrates it and reopens it with the chosen backend; every staged
+    batch is gathered on the card and equals a loader's host stream on
+    the reopened store."""
+    import torch
+
+    from repro_torch.core import ChunkStore
+    from repro_torch.core.storage import make_backend
+    from repro_torch.launch.train import parse_args, train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        args = parse_args(AUTOTUNE_ARGS + ["--workdir", work])
+        staged = []
+        torch.cuda.synchronize()
+        zero_launches()
+        summary = train(args, on_batch=lambda step, feed: staged.append(batch_digest(feed)))
+        launches = read_launches()
+        choice, stats = summary["autotune"], summary["device_stats"]
+        gathers = launches["chunk_gather_train"]
+        print(f"autotune: {choice.describe()}; losses {summary['losses']}; "
+              f"{stats.steps} staged batches; kernel launches {launches}")
+        if gathers == 0 or gathers != stats.steps or gathers != stats.kernel_steps:
+            fail(f"chunk_gather_train launched {gathers} times for {stats.steps} staged "
+                 f"batches")
+        if len(staged) != args.steps or not all(math.isfinite(x) for x in summary["losses"]):
+            fail(f"expected {args.steps} staged batches and finite losses, got "
+                 f"{len(staged)} and {summary['losses']}")
+        kw = {"readahead": choice.readahead} if choice.readahead else {}
+        store = ChunkStore.open(Path(work) / "chunks", backend=make_backend(choice.backend, **kw))
+        try:
+            if staged != host_digests(summary["spec"], store, args.steps):
+                fail("the autotuned path's staged batches differ from the host stream of a "
+                     "loader on the reopened store")
+        finally:
+            store.close()
+        print(f"staged batches equal the host stream on the reopened store ({len(staged)} steps)")
+    return {"backend": choice.backend, "readahead": choice.readahead,
+            "cache_limit_bytes": choice.cache_limit_bytes, "fidelity": choice.fidelity,
+            "predicted_epoch_s": choice.predicted_epoch_s, "losses": summary["losses"],
+            "staged_batches": stats.steps, "gather_launches": gathers}
+
+
 def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
@@ -1467,17 +1760,12 @@ def main(argv=None) -> int:
                         help="run only phases 1-2 for chunk_gather, the gathers' timings "
                              "(launch floor, B = 8, the large shape, host time) and phase "
                              "4b's profile of the training stager; print them as JSON last")
-    parser.add_argument("--src", type=Path, default=SRC,
-                        help="the src/ directory whose repro_torch runs (default: this "
-                             "checkout's); with --gathers, to time another checkout in the "
-                             "same harness")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
-    src = args.src.resolve()
-    if not (src / "repro_torch").is_dir():
-        fail(f"no port sources at {src / 'repro_torch'}")
-    sys.path.insert(0, str(src))
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"no port sources at {SRC / 'repro_torch'}")
+    sys.path.insert(0, str(SRC))
 
     from repro_torch.kernels.common import resolve_device
 
@@ -1513,7 +1801,7 @@ def main(argv=None) -> int:
         times["staging"] = where_time_goes(MAIN_ARGS)
         phase(None)
         print(card_line)
-        print(json.dumps({"gathers": times, "src": str(src)}))
+        print(json.dumps({"gathers": times}))
         return 0
     build_all()
 
@@ -1535,7 +1823,6 @@ def main(argv=None) -> int:
     # ------------------------------------------------ 4. training path
     phase("4. training main path: repro_torch.launch.train " + " ".join(MAIN_ARGS))
     run = main_path(MAIN_ARGS, batch=8, seq_len=2048, vocab=32000)
-    kernels["chunk_gather_train"]["launches"] = run["launches"]
     torch.cuda.empty_cache()
 
     phase("4b. where the training path's device time goes (torch.profiler)")
@@ -1570,6 +1857,16 @@ def main(argv=None) -> int:
     hybrid_run["decode_profile"] = where_decode_time_goes(summary)
     del summary
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 8. data-service path
+    phase("8. data-service main path: repro_torch.launch.data_service --serve and "
+          "repro_torch.launch.train " + " ".join(SERVED_ARGS) + " --data-server SOCK; "
+          + " ".join(AUTOTUNE_ARGS))
+    ds_run = data_service_path()
+    ds_run["main_path_profile"] = {k: run["profile"][k] for k in
+                                   ("idle_share", "ops_per_step", "side_stream_ops_per_batch")}
+    ds_run["main_path_steady_tokens_per_s"] = run["steady_tokens_per_s"]
+    torch.cuda.empty_cache()
     phase(None)
 
     # Launches in the main paths' runs: flash and decode run in both serving
@@ -1579,12 +1876,19 @@ def main(argv=None) -> int:
         counts = {path: launches[name] for path, launches in by_path.items() if name in launches}
         kernels[name]["launches"] = sum(counts.values())
         kernels[name]["launches_by_path"] = counts
+    # The training gather runs on phase 4's path and phase 8's autotuned
+    # one; the data-server path ships assembled grids and launches none.
+    counts = {"main_path": run["launches"], "data_service_path": ds_run["gather_launches"],
+              "autotune_path": ds_run["autotune"]["gather_launches"]}
+    kernels["chunk_gather_train"]["launches"] = sum(counts.values())
+    kernels["chunk_gather_train"]["launches_by_path"] = counts
 
     # ----------------------------------------------------------- result
     print(f"phase wall times, s: {json.dumps({k: round(v, 1) for k, v in phase.times.items()})}")
     print(json.dumps({"main_path": run}))
     print(json.dumps({"serve_path": serve_run}))
     print(json.dumps({"hybrid_path": hybrid_run}))
+    print(json.dumps({"data_service_path": ds_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Redox core: batched random access with file redirection (the paper's contribution)."""
 
 from .abstract_memory import AbstractMemory
+from .baselines import CoorDLLoader, NoIOLoader, PyTorchStyleLoader, run_baseline_epoch
 from .chunking import ChunkingPlan
 from .distributed import Cluster, EpochResult, RemoteMemory
 from .elastic import ClusterSnapshot
@@ -39,6 +40,7 @@ __all__ = [
     "ChunkStore",
     "Cluster",
     "ClusterSnapshot",
+    "CoorDLLoader",
     "DeviceStager",
     "DeviceStats",
     "EpochPlan",
@@ -47,13 +49,16 @@ __all__ = [
     "EpochSampler",
     "LocalNode",
     "MmapBackend",
+    "NoIOLoader",
     "NodeStats",
     "ParallelBackend",
     "PipelineTimeModel",
     "PlannerStats",
+    "PyTorchStyleLoader",
     "RedoxLoader",
     "RemoteMemory",
     "RequestResult",
+    "run_baseline_epoch",
     "ServiceStats",
     "SessionSpec",
     "StepIO",
@@ -67,8 +72,8 @@ __all__ = [
 
 def __getattr__(name):
     # DeviceStager lives behind a lazy import: core itself is numpy-only,
-    # and data-plane users must not pay the torch import unless they
-    # actually take the device path.
+    # and the transport's subprocess trainers must not pay the torch import
+    # unless they actually take the device path.
     if name in ("DeviceStager", "HostPack", "pack_records"):
         from . import device
 

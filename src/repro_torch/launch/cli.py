@@ -121,7 +121,7 @@ def add_autotune_args(ap: argparse.ArgumentParser) -> None:
     """Model-fitted autotuning flags (DESIGN.md §14), shared verbatim."""
     g = ap.add_argument_group("autotuning")
     g.add_argument("--autotune", action="store_true",
-                   help="calibrate the chunk store (repro.autotune) and "
+                   help="calibrate the chunk store (repro_torch.autotune) and "
                         "auto-select storage backend, readahead depth, and "
                         "cache byte cap from the fitted §6 time model; an "
                         "explicit --backend (or --cache-mb where it exists) "

@@ -10,14 +10,20 @@ CUDA ``chunk_gather_train`` kernel.
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --full --device-path gather --batch 8 --seq-len 2048 --steps 6
 
+With ``--data-server SOCKET`` the trainer owns no data plane at all: it
+opens a session on a running ``repro_torch.launch.data_service --serve``
+process and consumes batches from the shared-memory ring (DESIGN.md §11).
+With ``--autotune`` the freshly built store is calibrated and reopened
+with the backend and readahead the §6 time model picks (DESIGN.md §14).
+
 The parser is built from the same ``cli.py`` builders as the reference's,
-so every flag is spelled the same. ``--data-server`` and ``--autotune``
-are not ported yet and stop with a usage error.
+so every flag is spelled the same.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 from pathlib import Path
@@ -34,6 +40,7 @@ from ..kernels.common import resolve_device
 from ..models import build_model
 from ..obs import MetricsRegistry, attribution, format_report, model_columns, trace
 from ..optim.optimizers import make_optimizer
+from ..service.transport import RedoxClient
 from ..train.train_step import build_train_step, init_train_state
 from .cli import (
     RESUME_AUTO,
@@ -65,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     add_autotune_args(ap)
     add_obs_args(ap)
     ap.add_argument("--data-server", metavar="SOCKET", default=None,
-                    help="consume batches from a repro.launch.data_service "
+                    help="consume batches from a repro_torch.launch.data_service "
                          "--serve process at this unix socket instead of "
                          "building a local data plane")
     ap.add_argument("--job-id", default="train0",
@@ -80,14 +87,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse and validate; usage errors exit with status 2."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.data_server is not None:
-        ap.error("--data-server is not ported yet (ROADMAP.md §1 item 7: "
-                 "service/transport/autotune)")
-    if args.autotune:
-        ap.error("--autotune is not ported yet (ROADMAP.md §1 item 7: "
-                 "service/transport/autotune)")
+    if args.data_server is not None and args.resume_data is not None:
+        ap.error("--resume-data belongs to the server with --data-server "
+                 "(run data_service --resume-data there)")
+    if args.data_server is not None and args.suspend_after is not None:
+        ap.error("--suspend-after belongs to the server with --data-server")
     if args.suspend_after is not None and args.resume_data is None:
         ap.error("--suspend-after requires --resume-data")
+    if args.data_server is not None and args.device_path == "gather":
+        ap.error("--device-path gather requires a local data plane (ring "
+                 "frames ship assembled grids); use --device-path stage")
     try:
         resolve_device(args.device)
     except RuntimeError as e:
@@ -140,8 +149,10 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
     ``on_batch(step, feed)``, when given, sees every batch just before its
     train step. Returns a summary: per-step ``losses``, ``steps``,
     ``tokens_per_s`` (whole run) and ``steady_tokens_per_s`` (after the
-    first step), the stager's ``device_stats``, the ``spec`` and
-    ``workdir`` of the data plane, and ``elapsed_s``.
+    first step), the stager's ``device_stats``, the ``spec`` of the data
+    plane (with ``--data-server``, the server's echo of it) and the
+    ``workdir``, the autotuner's ``autotune`` choice (None without
+    ``--autotune``), and ``elapsed_s``.
     """
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
@@ -176,21 +187,56 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
     if args.resume_data is not None:
         data_dir = (workdir / "ckpt" / "data" if args.resume_data == RESUME_AUTO
                     else Path(args.resume_data))
-    ds = SyntheticTokenDataset(args.num_docs, args.vocab_size or cfg.vocab_size,
-                               mean_len=args.seq_len // 2, seed=args.seed + 5)
-    store = ds.build_store(workdir / "chunks", chunk_size=16,
-                           memory_bytes=int(ds.sizes_bytes.sum() // 4),
-                           seed=args.seed + 1,
-                           codec=args.codec, bands=args.bands)
-    if args.backend is not None:
-        store.close()
-        store = ChunkStore.open(workdir / "chunks", backend=args.backend)
-    if data_dir is not None and (data_dir / "loader_manifest.json").exists():
-        loader = RedoxLoader.resume(data_dir, store)
-        print(f"data plane resumed at epoch {loader.resume_point[0]} "
-              f"step {loader.resume_point[1]}")
+    store = None
+    choice = None
+    if args.data_server is not None:
+        loader = RedoxClient(args.data_server, spec, job_id=args.job_id)
+        spec = loader.spec
+        print(f"data plane: {args.data_server} (job {args.job_id})")
     else:
-        loader = RedoxLoader.from_spec(spec, store)
+        ds = SyntheticTokenDataset(args.num_docs, args.vocab_size or cfg.vocab_size,
+                                   mean_len=args.seq_len // 2, seed=args.seed + 5)
+        store = ds.build_store(workdir / "chunks", chunk_size=16,
+                               memory_bytes=int(ds.sizes_bytes.sum() // 4),
+                               seed=args.seed + 1,
+                               codec=args.codec, bands=args.bands)
+        if args.backend is not None:
+            store.close()
+            store = ChunkStore.open(workdir / "chunks", backend=args.backend)
+        elif args.autotune:
+            # Calibrate the freshly built store and reopen it with the
+            # model-selected backend + readahead (DESIGN.md §14). An
+            # explicit --backend wins over the autotuner (branch above).
+            from .. import autotune
+            from ..core.storage import make_backend
+
+            steps_hint = max(args.num_docs // max(args.batch, 1), 1)
+            _, choice = autotune.tune_store(
+                workdir / "chunks",
+                compute_per_step_s=args.compute_per_step,
+                num_steps=steps_hint,
+                memory_limit_bytes=(
+                    int(args.autotune_memory_mb * 1e6)
+                    if args.autotune_memory_mb is not None else None
+                ),
+            )
+            print(f"autotune: {choice.describe()}")
+            store.close()
+            kwargs = {"readahead": choice.readahead} if choice.readahead else {}
+            store = ChunkStore.open(
+                workdir / "chunks",
+                backend=make_backend(choice.backend, **kwargs),
+            )
+            # The §6 model's fidelity call on a progressive store — an
+            # explicit --fidelity wins (it's already in the spec).
+            if args.fidelity is None and choice.fidelity is not None:
+                spec = dataclasses.replace(spec, fidelity=choice.fidelity)
+        if data_dir is not None and (data_dir / "loader_manifest.json").exists():
+            loader = RedoxLoader.resume(data_dir, store)
+            print(f"data plane resumed at epoch {loader.resume_point[0]} "
+                  f"step {loader.resume_point[1]}")
+        else:
+            loader = RedoxLoader.from_spec(spec, store)
     stager = None
     if args.device_path != "naive":
         from ..core.device import DeviceStager
@@ -276,6 +322,7 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
             if run_steps > 1 else None
         ),
         device_stats=None, spec=spec, workdir=workdir, device=str(device),
+        autotune=choice,
     )
     if stager is not None:
         stager.close()
@@ -288,7 +335,10 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
         print(f"throughput: {summary['tokens_per_s']:,.0f} tokens/sec "
               f"over {run_steps} step(s)")
     if args.metrics:
-        print(_local_metrics(loader, store, stager).exposition(), end="")
+        if args.data_server is not None:
+            print(loader.metrics()["text"], end="")  # server-side registry
+        else:
+            print(_local_metrics(loader, store, stager).exposition(), end="")
     if tracer is not None:
         out = tracer.dump(args.trace)
         print(f"trace: {len(tracer)} events ({tracer.dropped} dropped) -> "
@@ -302,7 +352,10 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
             )
         print(format_report(att, model=cols, measured_wall_s=elapsed))
         trace.disable()
-    store.close()
+    if args.data_server is not None:
+        loader.close()
+    if store is not None:
+        store.close()
     if suspended:
         print(f"suspended after {run_steps} step(s) -> {data_dir}; "
               f"rerun with the same flags to continue")

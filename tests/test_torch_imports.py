@@ -37,7 +37,7 @@ def _imports(path: Path):
 
 def test_no_jax_or_reference_imports_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    assert len(files) >= 90
     bad = []
     for f in files:
         for mod in _imports(f):
@@ -75,6 +75,33 @@ def test_port_runs_loader_and_train_step_without_loading_jax(tmp_path):
         assert np.isfinite(float(metrics["loss"]))
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+        assert not leaked, leaked
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=_env(), timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
+
+
+def test_data_service_runs_without_loading_jax_or_torch(tmp_path):
+    """A port server thread and a client run an epoch, and neither JAX, the
+    reference package nor torch is ever imported."""
+    script = textwrap.dedent(f"""
+        import sys
+        from repro_torch.core import ChunkStore, SessionSpec
+        from repro_torch.data import SyntheticTokenDataset
+        from repro_torch.service import DataService, DataServiceServer, RedoxClient
+
+        ds = SyntheticTokenDataset(64, vocab_size=97, mean_len=24, seed=3)
+        store = ds.build_store({str(tmp_path / "chunks")!r}, 4, num_slots=16, seed=1)
+        spec = SessionSpec(seed=2, num_nodes=2, batch_per_node=4, seq_len=16)
+        with DataServiceServer(DataService(store), {str(tmp_path / "svc.sock")!r}) as server:
+            with RedoxClient(server.socket_path, spec, job_id="job0") as client:
+                batches = list(client.epoch(0))
+        assert len(batches) == 8, len(batches)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "jaxlib", "ml_dtypes", "repro", "torch"))
         assert not leaked, leaked
         print("OK")
     """)
@@ -135,3 +162,22 @@ def test_serve_cli_refuses_to_run_without_a_card():
     )
     assert out.returncode != 0
     assert "CUDA" in out.stderr
+
+
+#: Files of the data service that are byte-for-byte twins of the
+#: reference's, apart from the package name in imports and help texts.
+COPIES = ["autotune.py", "core/baselines.py", "ft/failures.py", "launch/data_service.py",
+          "service/__init__.py", "service/residency.py", "service/service.py",
+          "service/transport/__init__.py", "service/transport/ring.py",
+          "service/transport/server.py", "service/transport/wire.py",
+          "service/transport/client.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_modules_equal_their_reference(rel):
+    port = (PORT / rel).read_text().replace("repro_torch", "repro")
+    ref = (ROOT / "src" / "repro" / rel).read_text()
+    if rel.endswith("client.py"):  # epoch_device is ported: it stages with torch
+        start, end = "    def epoch_device(", "    # ----" + "-" * 57 + " lifecycle"
+        port, ref = (s[:s.index(start)] + s[s.index(end):] for s in (port, ref))
+    assert port == ref

@@ -326,10 +326,28 @@ def test_launcher_trains_on_cpu_through_the_gather_path(tmp_path, capsys):
     assert "done: 3 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--data-server", "x.sock"], ["--autotune"]])
-def test_launcher_rejects_unported_flags(flag):
+@pytest.mark.parametrize("flag", [["--device-path", "gather"], ["--resume-data", "d"],
+                                  ["--suspend-after", "2"]])
+def test_launcher_rejects_what_the_reference_rejects(flag, capsys):
+    """With --data-server, the flags that need a local data plane are usage
+    errors, as in the reference's launcher."""
     from repro_torch.launch.train import parse_args
 
     with pytest.raises(SystemExit) as e:
-        parse_args(["--arch", "tinyllama-1.1b", "--device", "cpu", *flag])
+        parse_args(["--arch", "tinyllama-1.1b", "--device", "cpu", "--data-server", "x.sock",
+                    *flag])
     assert e.value.code == 2
+    assert flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--data-server", "x.sock", "--device-path", "stage"],
+                                  ["--autotune", "--device-path", "gather"]])
+def test_launcher_service_paths_refuse_without_a_card(flag, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.launch.train import parse_args
+
+    with pytest.raises(SystemExit) as e:
+        parse_args(["--arch", "tinyllama-1.1b", *flag])
+    assert e.value.code == 2
+    assert "CUDA" in capsys.readouterr().err
