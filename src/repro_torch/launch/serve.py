@@ -4,6 +4,10 @@
         --batch 8 --prompt-len 1920 --new-tokens 128 --seed 0
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full \
         --batch 8 --prompt-len 3584 --new-tokens 512 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --full \
+        --batch 8 --prompt-len 1920 --new-tokens 128 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --full \
+        --batch 8 --prompt-len 1792 --new-tokens 257 --seed 0
 
 Runs on the CUDA card by default (``--device cpu`` for the CPU, where the
 attention kernels' plain versions run); a missing or non-Hopper card is an
@@ -12,14 +16,17 @@ error, never a silent CPU run. The prompt goes through ``build_prefill_step``
 the ssd_scan kernel, the K/V sized into a decode cache of ``prompt_len +
 new_tokens`` slots), then each new token through ``build_decode_step``
 (attention in the decode-attention kernel, the cache and recurrent states
-updated in place). Tokens are greedy (``argmax``). A hybrid prompt must be
-at most ``ssm_chunk`` (256) tokens or a multiple of it, the reference's
-rule.
+updated in place; a MoE layer routes each token through its experts).
+Tokens are greedy (``argmax``). A hybrid prompt must be at most
+``ssm_chunk`` (256) tokens or a multiple of it, and an xLSTM prompt at
+most 256 tokens or a multiple of 256 (the mLSTM chunk), the reference's
+rules. xLSTM runs no kernel: its cells are plain PyTorch, as the
+reference's are jnp.
 
 ``--list-archs`` prints every registered arch with its serving capability
-and exits 0; asking to serve an encoder-only arch exits 1. An arch whose
-block kinds are not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item. ``--seed`` makes the random prompts and weights
+and exits 0; asking to serve an encoder-only arch exits 1. An arch with a
+frontend stub (llava-next-34b) raises ``NotImplementedError`` naming its
+ROADMAP item, as does ``moe_impl="a2a"``. ``--seed`` makes the random prompts and weights
 reproducible. :func:`serve` is the same run as a function, for callers
 that check its output.
 """
@@ -35,6 +42,7 @@ import torch
 from ..configs import get_config, list_archs, reduced
 from ..kernels.common import resolve_device
 from ..models import build_model
+from ..models.transformer import ATTN_KINDS
 from ..train.train_step import build_decode_step, build_prefill_step
 
 __all__ = ["build_parser", "main", "prefill_agreement", "serve"]
@@ -63,10 +71,11 @@ def _sync(device: torch.device) -> None:
 
 
 def _recurrent(model, caches) -> dict:
-    """Copies of the recurrent (mamba2) cache leaves, keyed by segment."""
+    """Copies of the recurrent (Mamba-2, mLSTM, sLSTM) cache leaves, keyed
+    by segment."""
     return {i: {name: t.clone() for name, t in cache.items()}
             for i, ((kind, _), cache) in enumerate(zip(model.cfg.segments(), caches))
-            if kind == "mamba2"}
+            if kind not in ATTN_KINDS}
 
 
 def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
@@ -157,11 +166,11 @@ def prefill_agreement(summary: dict, steps) -> list[dict]:
     a fresh prefill over the prompt plus tokens 0..t must give, at its last
     position, the logits decode step ``t`` gave. Returns per step the
     scale-normalised max error ``max |decode - prefill| / max |prefill|``
-    and the number of rows whose argmax agrees. Where the run kept a hybrid
-    model's recurrent states after step ``t`` (``summary["states"]``), the
+    and the number of rows whose argmax agrees. Where the run kept the
+    recurrent states after step ``t`` (``summary["states"]``), the
     prefill's final states must match them too: ``state_err`` holds, per
-    leaf (``ssm``, ``conv``), the worst of the per-layer scale-normalised
-    errors.
+    block kind and leaf (``mamba2.ssm``, ``mamba2.conv``, ``mlstm.C``,
+    ``slstm.m``, ...), the worst of the per-layer scale-normalised errors.
     """
     model = summary["model"]
     device = model.device
@@ -175,11 +184,13 @@ def prefill_agreement(summary: dict, steps) -> list[dict]:
         agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
         row = {"step": t, "err": _err(got, ref), "argmax_agree": agree, "rows": got.shape[0]}
         if t in summary.get("states", {}):
+            kinds = [kind for kind, _ in model.cfg.segments()]
             worst: dict = {}
             for i, leaves in summary["states"][t].items():
                 for name, kept in leaves.items():
+                    key = f"{kinds[i]}.{name}"
                     for g, r in zip(kept, caches[i][name]):
-                        worst[name] = max(worst.get(name, 0.0), _err(g, r))
+                        worst[key] = max(worst.get(key, 0.0), _err(g, r))
             row["state_err"] = worst
         out.append(row)
     return out

@@ -1,4 +1,4 @@
-"""Model assembly: dense and hybrid decoders (``repro/models/transformer.py``).
+"""Model assembly: every block kind of the reference (``repro/models/transformer.py``).
 
 The parameter tree is the reference's: each segment's per-layer leaves are
 stacked on a leading layers axis (``(L, d)`` norms, ``(L, in, out)``
@@ -8,6 +8,19 @@ for ``/`` (``segments.0.attn.wq`` is ``segments/0/attn/wq``), and
 That matters beyond naming: AdamW decays every tensor of rank >= 2, so
 the stacked ``(L, d)`` norm scales are decayed, as in the reference.
 
+The block kinds, each a pre-norm residual block:
+
+- ``attn_mlp``: attention + SwiGLU MLP (the dense family);
+- ``attn_dense_moe``: the same with ``d_ff = moe_dense_ff``, the leading
+  dense layers of a MoE stack;
+- ``attn_moe``: attention + the routed/shared experts of ``moe.py``, whose
+  load-balance loss ``forward`` sums into the ``aux`` it returns;
+- ``mamba2``: the Mamba-2 mixer (zamba2);
+- ``shared_attn``: zamba2's *shared* attention+MLP block, one unstacked
+  parameter set under ``shared_attn`` applied at every site, whose
+  ``segments`` entry is an empty placeholder, the reference's tree;
+- ``mlstm`` / ``slstm``: the xLSTM cells of ``xlstm.py``.
+
 The reference scans a segment with ``lax.scan``; here a Python loop walks
 the layers of ``unbind(0)`` views (one stacked gradient per leaf on the
 way back). ``remat="dots"`` / ``"full"`` checkpoint each layer with
@@ -15,26 +28,19 @@ way back). ``remat="dots"`` / ``"full"`` checkpoint each layer with
 kept, and the attention logits are recomputed in the backward pass.
 
 Serving mirrors the reference: ``forward(..., want_cache=True)`` (prefill,
-attention through the flash-attention kernel) also returns each segment's
-``{"k", "v"}`` stacks (L, B, S, KVH, D); ``cache_specs`` / ``init_cache``
-give the decode cache, stacked per segment like the parameters (rotating
-window buffers when ``cfg.window`` is set, int8 with bf16 scales when
+attention through the flash-attention kernel, the Mamba-2 scan through
+``ssd_scan``) also returns each segment's cache entry: ``{"k", "v"}``
+stacks (L, B, S, KVH, D) for the attention kinds, the final recurrent
+states for the others (f32 SSM / mLSTM / sLSTM states, the Mamba-2 conv
+context in the compute dtype). ``cache_specs`` / ``init_cache`` give the
+decode cache, stacked per segment like the parameters (rotating window
+buffers when ``cfg.window`` is set, int8 with bf16 scales when
 ``cfg.kv_cache_dtype == "int8"``); ``decode_step`` runs one token through
-every layer against it (attention through the decode-attention kernel),
+every layer against it (attention through the decode-attention kernel, an
+``attn_moe`` layer's experts through ``moe_block`` on that token),
 updating it in place.
 
-The hybrid family (zamba2) is ported too: ``mamba2`` segments stack their
-leaves like any other (``ln (L, d)``, ``mixer.in_proj (L, d, e)``, ...),
-and zamba2's *shared* attention+MLP block is one unstacked parameter set
-under ``shared_attn``, applied at every ``shared_attn`` site, whose
-``segments`` entry is an empty placeholder, the reference's tree. In the
-prefill the Mamba-2 scan runs in the ``ssd_scan`` kernel and the shared
-block's attention in the flash kernel; the cache holds ``{"ssm", "conv"}``
-per Mamba segment (f32 SSM state, conv context in the compute dtype) and a
-``{"k", "v"}`` of leading axis 1 per shared site, each site its own KV.
-
-The attn_mlp, mamba2 and shared_attn block kinds without a frontend are
-ported; the other kinds and the frontends raise and wait for later slices.
+The frontend stubs and ``moe_impl="a2a"`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -47,72 +53,157 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from .attention import attention_block, decode_attention_block, init_attention
-from .common import normal_init, rms_norm
+from .common import flatten_tree, normal_init, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
+from .moe import init_moe, moe_block
+from .xlstm import (
+    _mlstm_dims,
+    _slstm_dims,
+    init_mlstm,
+    init_slstm,
+    mlstm_block,
+    mlstm_decode,
+    mlstm_state_shape,
+    slstm_block,
+    slstm_decode,
+    slstm_state_shape,
+)
 
-__all__ = ["Model", "build_model"]
+__all__ = ["ATTN_KINDS", "Model", "build_model"]
 
-#: Where each block kind that is not ported yet is queued (ROADMAP.md §1).
-_NOT_PORTED = {
-    "attn_dense_moe": "ROADMAP.md §1 item 3 (MoE)",
-    "attn_moe": "ROADMAP.md §1 item 3 (MoE)",
-    "mlstm": "ROADMAP.md §1 item 4 (xLSTM)",
-    "slstm": "ROADMAP.md §1 item 4 (xLSTM)",
-}
-_PORTED = ("attn_mlp", "mamba2", "shared_attn")
+ATTN_KINDS = ("attn_mlp", "attn_dense_moe", "attn_moe", "shared_attn")
 REMAT_MODES = ("none", "dots", "full")
+#: The recurrent kinds: (full-sequence block, one-token decode, parameter key).
+_RECURRENT = {
+    "mamba2": (mamba2_block, mamba2_decode, "mixer"),
+    "mlstm": (mlstm_block, mlstm_decode, "cell"),
+    "slstm": (slstm_block, slstm_decode, "cell"),
+}
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _attn_mlp_block(p, x, cfg):
-    h, _ = attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
-    x = x + h
-    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+# ----------------------------------------------------------------- blocks
+def _ffn_width(kind, cfg) -> int:
+    return (cfg.moe_dense_ff or cfg.d_ff) if kind == "attn_dense_moe" else cfg.d_ff
 
 
-def _prefill_block(p, x, cfg):
-    """``_attn_mlp_block`` through the flash kernel; also returns (k, v)."""
-    h, kv = attention_block(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
-                            want_cache=True)
-    x = x + h
-    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps)), kv
+def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
+    """One layer's parameter tree as shapes (the reference's ``_init_block``)."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    if kind in ATTN_KINDS:
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        tree = {"ln1": (d,), "ln2": (d,),
+                "attn": {"wq": (d, h * hd), "wk": (d, kvh * hd), "wv": (d, kvh * hd),
+                         "wo": (h * hd, d)}}
+        if kind == "attn_moe":
+            e, f = cfg.moe_num_experts, cfg.d_ff
+            tree["moe"] = {"router": (d, e), "wi_gate": (e, d, f), "wi_up": (e, d, f),
+                           "wo": (e, f, d)}
+            if cfg.moe_num_shared:
+                sf = f * cfg.moe_num_shared
+                tree["moe"]["shared"] = {"wi_gate": (d, sf), "wi_up": (d, sf), "wo": (sf, d)}
+        else:
+            f = _ffn_width(kind, cfg)
+            tree["mlp"] = {"wi_gate": (d, f), "wi_up": (d, f), "wo": (f, d)}
+        return tree
+    if kind == "mamba2":
+        di, n = cfg.d_inner, cfg.ssm_state
+        heads, conv_dim = di // cfg.ssm_head_dim, di + 2 * n
+        return {"ln": (d,), "mixer": {
+            "in_proj": (d, 2 * di + 2 * n + heads), "conv_w": (cfg.ssm_conv, conv_dim),
+            "conv_b": (conv_dim,), "A_log": (heads,), "dt_bias": (heads,), "D": (heads,),
+            "out_proj": (di, d)}}
+    if kind == "mlstm":
+        di, heads, _ = _mlstm_dims(cfg)
+        return {"ln": (d,), "cell": {
+            "w_up": (d, 2 * di), "wq": (di, di), "wk": (di, di), "wv": (di, di),
+            "w_i": (di, heads), "w_f": (di, heads), "b_f": (heads,), "out_norm": (di,),
+            "w_down": (di, d)}}
+    if kind == "slstm":
+        _, heads, dh = _slstm_dims(cfg)
+        cell = {"out_norm": (d,), "w_out": (d, d)}
+        for g in ("z", "i", "f", "o"):
+            cell.update({f"w_{g}": (d, d), f"r_{g}": (heads, dh, dh), f"b_{g}": (d,)})
+        return {"ln": (d,), "cell": cell}
+    raise ValueError(kind)
 
 
-def _decode_block(p, x, cache, cache_pos, cfg):
-    """One-token ``attn_mlp`` block against one layer's cache (updated in
-    place). Returns x."""
-    h = decode_attention_block(
-        p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"], cache["v"],
-        cache_pos, cfg, k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-    )
-    x = x + h
-    return x + mlp_block(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps))
+def _init_block(kind: str, gen, cfg: ModelConfig, dtype) -> dict:
+    """One layer's parameters, drawn in the reference's order."""
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
+    if kind == "attn_moe":
+        return {"ln1": zeros(), "attn": init_attention(gen, cfg, dtype), "ln2": zeros(),
+                "moe": init_moe(gen, cfg, dtype)}
+    if kind in ATTN_KINDS:
+        return {"ln1": zeros(), "attn": init_attention(gen, cfg, dtype), "ln2": zeros(),
+                "mlp": init_mlp(gen, cfg, dtype, d_ff=_ffn_width(kind, cfg))}
+    init = {"mamba2": init_mamba2, "mlstm": init_mlstm, "slstm": init_slstm}[kind]
+    return {"ln": zeros(), _RECURRENT[kind][2]: init(gen, cfg, dtype)}
 
 
-def _mamba2_block(p, x, cfg, want_cache=False):
-    """The pre-norm residual Mamba-2 block. Returns (x, {"ssm", "conv"})."""
-    h, st = mamba2_block(p["mixer"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
-                         want_cache=want_cache)
-    return x + h, st
+def _block(kind, p, x, cfg, want_cache=False):
+    """One block over the full sequence. Returns ``(x, cache entry, aux)``:
+    the entry is ``{"k", "v"}`` for the attention kinds, the final state
+    for the recurrent ones; ``aux`` is the MoE load-balance loss, else None.
+    ``want_cache`` (prefill, no gradient) routes attention through the
+    flash kernel and the Mamba-2 scan through ssd_scan."""
+    eps = cfg.norm_eps
+    if kind in ATTN_KINDS:
+        h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
+                                    want_cache=want_cache)
+        x = x + h
+        hn = rms_norm(x, p["ln2"], eps)
+        if kind == "attn_moe":
+            h, aux = moe_block(p["moe"], hn, cfg)
+        else:
+            h, aux = mlp_block(p["mlp"], hn), None
+        return x + h, {"k": k, "v": v}, aux
+    fn, _, key = _RECURRENT[kind]
+    kw = {"want_cache": want_cache} if kind == "mamba2" else {}
+    h, st = fn(p[key], rms_norm(x, p["ln"], eps), cfg, **kw)
+    return x + h, st, None
 
 
-def _mamba2_train_block(p, x, cfg):
-    return _mamba2_block(p, x, cfg)[0]
+def _train_block(kind, p, x, cfg):
+    x, _, aux = _block(kind, p, x, cfg)
+    return x, aux
+
+
+def _decode_block(kind, p, x, cache, cache_pos: int, cfg):
+    """One token through one block against its cache entry (updated in
+    place). Returns x. An ``attn_moe`` layer routes the token through
+    ``moe_block`` and drops its aux, as the reference does."""
+    eps = cfg.norm_eps
+    if kind in ATTN_KINDS:
+        x = x + decode_attention_block(
+            p["attn"], rms_norm(x, p["ln1"], eps), cache["k"], cache["v"], cache_pos, cfg,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+        hn = rms_norm(x, p["ln2"], eps)
+        if kind == "attn_moe":
+            return x + moe_block(p["moe"], hn, cfg)[0]
+        return x + mlp_block(p["mlp"], hn)
+    _, fn, key = _RECURRENT[kind]
+    h, _ = fn(p[key], rms_norm(x, p["ln"], eps), cache, cfg)
+    return x + h
 
 
 def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
     """{leaf: (shape, dtype)} for one block's decode cache entry. KV caches
     live in the compute dtype, or int8 with bf16 per-(token, head) scales;
     a windowed config keeps only ``min(max_len, window)`` slots. The
-    Mamba-2 state is f32 (it integrates over the whole sequence), its conv
-    context in the compute dtype."""
+    recurrent states (SSM, mLSTM, sLSTM) are f32, since they integrate over
+    the whole sequence; the Mamba-2 conv context is in the compute dtype."""
+    f32 = torch.float32
     if kind == "mamba2":
         shp = mamba2_state_shape(cfg, batch)
-        return {"ssm": (shp["ssm"], torch.float32), "conv": (shp["conv"], cdt)}
+        return {"ssm": (shp["ssm"], f32), "conv": (shp["conv"], cdt)}
+    if kind in ("mlstm", "slstm"):
+        fn = mlstm_state_shape if kind == "mlstm" else slstm_state_shape
+        return {name: (shape, f32) for name, shape in fn(cfg, batch).items()}
     s = min(max_len, cfg.window) if cfg.window else max_len
     shp = (batch, s, cfg.num_kv_heads, cfg.head_dim_)
     if cfg.kv_cache_dtype == "int8":
@@ -122,129 +213,89 @@ def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
     return {"k": (shp, cdt), "v": (shp, cdt)}
 
 
-class _AttnMlpSegment(nn.Module):
-    """``count`` attn_mlp blocks, every leaf stacked on a leading layers
-    axis; ``count=None`` is one unstacked block (zamba2's shared block)."""
+def _unflatten(flat: dict) -> dict:
+    """{"a/b": leaf} -> {"a": {"b": leaf}} (the inverse of ``flatten_tree``)."""
+    out: dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split("/")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[name] = leaf
+    return out
 
-    def __init__(self, count: int | None, cfg: ModelConfig, dtype, device):
+
+class _Tree(nn.Module):
+    """A subtree of parameters: its leaves are parameters, its subtrees
+    modules, so the state-dict names are the tree paths. ``tree[name]``
+    reads a child, as a dict would."""
+
+    def __init__(self, shapes: dict | None = None, lead=(), dtype=None, device=None):
         super().__init__()
-        d, hd = cfg.d_model, cfg.head_dim_
-        h, kvh, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
-        lead = () if count is None else (count,)
+        for name, shape in (shapes or {}).items():
+            if isinstance(shape, dict):
+                self.add_module(name, _Tree(shape, lead, dtype, device))
+            else:
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty((*lead, *shape), dtype=dtype, device=device)))
 
-        def empty(*shape):
-            return nn.Parameter(torch.empty((*lead, *shape), dtype=dtype, device=device))
-
-        self.count = count
-        self.ln1 = empty(d)
-        self.attn = nn.ParameterDict({
-            "wq": empty(d, h * hd), "wk": empty(d, kvh * hd),
-            "wv": empty(d, kvh * hd), "wo": empty(h * hd, d),
-        })
-        self.ln2 = empty(d)
-        self.mlp = nn.ParameterDict({
-            "wi_gate": empty(d, f), "wi_up": empty(d, f), "wo": empty(f, d),
-        })
+    def __getitem__(self, name):
+        return getattr(self, name)
 
     def values(self) -> dict:
-        return {"attn": dict(self.attn), "ln1": self.ln1, "ln2": self.ln2,
-                "mlp": dict(self.mlp)}
+        out = dict(self.named_parameters(recurse=False))
+        out.update({name: child.values() for name, child in self.named_children()})
+        return out
+
+
+class _Segment(_Tree):
+    """``count`` blocks of one kind, every leaf stacked on a leading layers
+    axis; ``count=None`` is one unstacked block (zamba2's shared block).
+    The stacked per-head and per-channel leaves (Mamba-2's ``A_log``,
+    ``D``, ..., the mLSTM's ``b_f``) are rank 2, so AdamW decays them, as
+    in the reference."""
+
+    def __init__(self, kind: str, count: int | None, cfg: ModelConfig, dtype, device):
+        super().__init__(_block_shapes(kind, cfg), () if count is None else (count,),
+                         dtype, device)
+        self.kind, self.count = kind, count
 
     def layers(self) -> list[dict]:
         """Per-layer views of the stacked leaves (``unbind(0)``)."""
-        ln1, ln2 = self.ln1.unbind(0), self.ln2.unbind(0)
-        attn = {k: v.unbind(0) for k, v in self.attn.items()}
-        mlp = {k: v.unbind(0) for k, v in self.mlp.items()}
-        return [
-            {"ln1": ln1[i], "ln2": ln2[i],
-             "attn": {k: v[i] for k, v in attn.items()},
-             "mlp": {k: v[i] for k, v in mlp.items()}}
-            for i in range(self.count)
-        ]
-
-    @torch.no_grad()
-    def init(self, gen, cfg, dtype) -> None:
-        # Per-layer draws in the reference's order (attn then mlp), stacked.
-        # An unstacked block is one draw, its stack viewed without the axis.
-        blocks = [(init_attention(gen, cfg, dtype), init_mlp(gen, cfg, dtype))
-                  for _ in range(self.count or 1)]
-        self.ln1.zero_()
-        self.ln2.zero_()
-        for k, p in self.attn.items():
-            p.copy_(torch.stack([a[k] for a, _ in blocks]).view_as(p))
-        for k, p in self.mlp.items():
-            p.copy_(torch.stack([m[k] for _, m in blocks]).view_as(p))
-
-
-class _Mamba2Segment(nn.Module):
-    """``count`` mamba2 blocks, every leaf stacked on a leading layers axis.
-
-    The per-head and per-channel leaves (``A_log``, ``dt_bias``, ``D``,
-    ``conv_b``) stack to rank 2, so AdamW decays them, as in the reference.
-    """
-
-    def __init__(self, count: int, cfg: ModelConfig, dtype, device):
-        super().__init__()
-        d, k = cfg.d_model, cfg.ssm_conv
-        di, n = cfg.d_inner, cfg.ssm_state
-        heads = di // cfg.ssm_head_dim
-        conv_dim = di + 2 * n
-
-        def empty(*shape):
-            return nn.Parameter(torch.empty((count, *shape), dtype=dtype, device=device))
-
-        self.count = count
-        self.ln = empty(d)
-        self.mixer = nn.ParameterDict({
-            "in_proj": empty(d, 2 * di + 2 * n + heads), "conv_w": empty(k, conv_dim),
-            "conv_b": empty(conv_dim), "A_log": empty(heads), "dt_bias": empty(heads),
-            "D": empty(heads), "out_proj": empty(di, d),
-        })
-
-    def values(self) -> dict:
-        return {"ln": self.ln, "mixer": dict(self.mixer)}
-
-    def layers(self) -> list[dict]:
-        """Per-layer views of the stacked leaves (``unbind(0)``)."""
-        ln = self.ln.unbind(0)
-        mixer = {k: v.unbind(0) for k, v in self.mixer.items()}
-        return [{"ln": ln[i], "mixer": {k: v[i] for k, v in mixer.items()}}
+        views = {path: p.unbind(0) for path, p in flatten_tree(self.values()).items()}
+        return [_unflatten({path: v[i] for path, v in views.items()})
                 for i in range(self.count)]
 
     @torch.no_grad()
     def init(self, gen, cfg, dtype) -> None:
-        blocks = [init_mamba2(gen, cfg, dtype) for _ in range(self.count)]
-        self.ln.zero_()
-        for k, p in self.mixer.items():
-            p.copy_(torch.stack([b[k] for b in blocks]))
-
-
-class _SharedSite(nn.Module):
-    """A ``shared_attn`` site: no parameters of its own (they live in
-    ``Model.shared_attn``); its values are the reference's ``{}``."""
-
-    def values(self) -> dict:
-        return {}
+        """Per-layer draws in the reference's order, written into each
+        layer's slice (an unstacked block is one draw)."""
+        leaves = flatten_tree(self.values())
+        for i in range(self.count or 1):
+            block = flatten_tree(_init_block(self.kind, gen, cfg, dtype))
+            for path, p in leaves.items():
+                (p if self.count is None else p[i]).copy_(block[path])
 
 
 class Model(nn.Module):
-    """Dense or hybrid decoder. Parameters are allocated on
+    """The decoder of any registered family. Parameters are allocated on
     ``device`` but not initialised: call :meth:`init` (or load weights
     through :mod:`repro_torch.models.convert` / a checkpoint) before use,
     as the reference's ``Model(cfg)`` holds no parameters until ``init``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        for kind, _ in cfg.segments():
-            if kind not in _PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: block kind {kind!r} is not ported yet: "
-                    f"{_NOT_PORTED.get(kind, 'ROADMAP.md §1')}"
-                )
+        kinds = [kind for kind, _ in cfg.segments()]
         if cfg.frontend != "none":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.frontend!r} frontend stub is not ported "
                 "yet: ROADMAP.md §1 item 5 (dense-family remainder)"
+            )
+        if cfg.moe_impl == "a2a" and "attn_moe" in kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: moe_impl='a2a' (moe_block_a2a) needs a mesh with a "
+                "'model' axis, which one card does not have: ROADMAP.md §1 item 8 "
+                "(launch tooling)"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -256,18 +307,13 @@ class Model(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=dtype, device=self.device)
             )
-        segs = []
-        for kind, count in cfg.segments():
-            if kind == "attn_mlp":
-                segs.append(_AttnMlpSegment(count, cfg, dtype, self.device))
-            elif kind == "mamba2":
-                segs.append(_Mamba2Segment(count, cfg, dtype, self.device))
-            else:
-                segs.append(_SharedSite())
-        self.segments = nn.ModuleList(segs)
+        self.segments = nn.ModuleList(
+            _Tree() if kind == "shared_attn" else _Segment(kind, count, cfg, dtype, self.device)
+            for kind, count in cfg.segments()
+        )
         self.shared_attn = None
-        if any(kind == "shared_attn" for kind, _ in cfg.segments()):
-            self.shared_attn = _AttnMlpSegment(None, cfg, dtype, self.device)
+        if "shared_attn" in kinds:
+            self.shared_attn = _Segment("shared_attn", None, cfg, dtype, self.device)
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
@@ -316,51 +362,44 @@ class Model(nn.Module):
     def forward(self, inputs: dict, *, remat: str = "none", want_cache: bool = False):
         """Full-sequence pass over ``inputs["tokens"]`` (B, S) int.
 
-        Returns ``(logits (B, S, V), aux)``; ``aux`` is the f32 zero the
-        reference returns for blocks without an auxiliary loss. With
-        ``want_cache`` (prefill: no gradient, attention in the flash
-        kernel, the Mamba-2 scan in the ssd_scan kernel) returns ``(logits,
-        aux, caches)``, one entry per segment: ``{"k", "v"}`` stacks (L, B,
-        S, KVH, D) for attn_mlp, ``{"ssm", "conv"}`` stacks (L, B, H, P, N)
-        and (L, B, K-1, C) for mamba2, and an unstacked ``{"k", "v"}`` (B, S,
-        KVH, D) for a shared_attn site, as the reference's forward gives.
+        Returns ``(logits (B, S, V), aux)``; ``aux`` is the f32 sum of the
+        ``attn_moe`` layers' load-balance losses, in layer order (zero
+        without MoE layers), as the reference's. With ``want_cache``
+        (prefill: no gradient, attention in the flash kernel, the Mamba-2
+        scan in the ssd_scan kernel) returns ``(logits, aux, caches)``, one
+        entry per segment: ``{"k", "v"}`` stacks (L, B, S, KVH, D) for the
+        attention kinds, the recurrent kinds' final states stacked on L
+        (``{"ssm", "conv"}``, ``{"C", "n"}``, ``{"c", "n", "h", "m"}``), and
+        an unstacked ``{"k", "v"}`` (B, S, KVH, D) for a shared_attn site,
+        as the reference's forward gives.
         """
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")
         cfg = self.cfg
         x = self._embed_inputs(inputs)
-        ckpt = remat != "none" and torch.is_grad_enabled()
+        ckpt = remat != "none" and torch.is_grad_enabled() and not want_cache
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for (kind, _), seg in zip(cfg.segments(), self.segments):
             if kind == "shared_attn":  # applied outside the layer scan: no remat
-                p = self.shared_attn.values()
-                if want_cache:
-                    x, (k, v) = _prefill_block(p, x, cfg)
-                    caches.append({"k": k, "v": v})
-                else:
-                    x = _attn_mlp_block(p, x, cfg)
+                x, entry, _ = _block(kind, self.shared_attn.values(), x, cfg, want_cache)
+                caches.append(entry)
                 continue
-            block = _attn_mlp_block if kind == "attn_mlp" else _mamba2_train_block
             entries = []
             for lp in seg.layers():
-                if want_cache:
-                    if kind == "attn_mlp":
-                        x, (k, v) = _prefill_block(lp, x, cfg)
-                        entries.append({"k": k, "v": v})
-                    else:
-                        x, st = _mamba2_block(lp, x, cfg, want_cache=True)
-                        entries.append(st)
-                elif ckpt:
-                    x = checkpoint(block, lp, x, cfg, use_reentrant=False)
+                if ckpt:
+                    x, aux = checkpoint(_train_block, kind, lp, x, cfg, use_reentrant=False)
                 else:
-                    x = block(lp, x, cfg)
+                    x, entry, aux = _block(kind, lp, x, cfg, want_cache)
+                    entries.append(entry)
+                if aux is not None:
+                    aux_total = aux_total + aux
             if want_cache:
                 caches.append({name: torch.stack([e[name] for e in entries])
                                for name in entries[0]})
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if want_cache:
-            return self._logits(x), aux, caches
-        return self._logits(x), aux
+            return self._logits(x), aux_total, caches
+        return self._logits(x), aux_total
 
     # ------------------------------------------------------------ decode
     def cache_specs(self, batch: int, max_len: int, dtype=None) -> list[dict]:
@@ -391,17 +430,12 @@ class Model(nn.Module):
         x = self._embed_inputs({"tokens": tokens})
         for (kind, _), seg, cache in zip(cfg.segments(), self.segments, caches):
             if kind == "shared_attn":
-                x = _decode_block(self.shared_attn.values(), x,
+                x = _decode_block(kind, self.shared_attn.values(), x,
                                   {k: t[0] for k, t in cache.items()}, cache_pos, cfg)
                 continue
             for i, lp in enumerate(seg.layers()):
-                layer_cache = {k: t[i] for k, t in cache.items()}
-                if kind == "mamba2":
-                    h, _ = mamba2_decode(lp["mixer"], rms_norm(x, lp["ln"], cfg.norm_eps),
-                                         layer_cache, cfg)
-                    x = x + h
-                else:
-                    x = _decode_block(lp, x, layer_cache, cache_pos, cfg)
+                x = _decode_block(kind, lp, x, {k: t[i] for k, t in cache.items()},
+                                  cache_pos, cfg)
         return self._logits(x), caches
 
 

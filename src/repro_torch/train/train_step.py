@@ -27,7 +27,7 @@ import torch
 from ..configs.base import RunConfig
 from ..models.common import flatten_tree
 from ..models.attention import quantize_kv
-from ..models.transformer import Model
+from ..models.transformer import ATTN_KINDS, Model
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 from .losses import lm_loss
 
@@ -140,7 +140,7 @@ def build_prefill_step(model: Model, max_len: int):
         s_c = min(max_len, cfg.window) if cfg.window else max_len
         sized = []
         for (kind, _), cache in zip(cfg.segments(), caches):
-            if kind not in ("attn_mlp", "shared_attn"):
+            if kind not in ATTN_KINDS:
                 sized.append(cache)  # recurrent state is already the cache
                 continue
             if kind == "shared_attn":

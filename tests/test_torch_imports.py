@@ -46,6 +46,15 @@ def test_no_jax_or_reference_imports_in_port_sources():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("rel", ["models/moe.py", "models/xlstm.py", "models/transformer.py"])
+def test_scan_covers_every_model_module(rel):
+    """The scan above walks the package, so each model module is in it,
+    and each imports torch and nothing banned."""
+    assert PORT / rel in set(PORT.rglob("*.py"))
+    mods = list(_imports(PORT / rel))
+    assert "torch" in mods and not [m for m in mods if m.split(".")[0] in BANNED]
+
+
 def test_port_runs_loader_and_train_step_without_loading_jax(tmp_path):
     script = textwrap.dedent(f"""
         import sys

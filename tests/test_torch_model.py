@@ -208,9 +208,9 @@ def test_bridge_round_trip_is_bit_exact(cfg, dtype):
 
 def test_unported_kinds_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(get_config("xlstm-350m")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(reduced(get_config("llava-next-34b")), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(reduced(get_config("hubert-xlarge")), device="cpu")
 
 
 # ------------------------------------------------------------------ hybrid
@@ -268,3 +268,91 @@ def test_hybrid_forward_logits(hcfg, remat):
     got, aux = model({"tokens": t(tokens)}, remat=remat)
     assert got.shape == (2, 32, c.vocab_size) and float(aux) == 0.0
     assert err(got, want) <= TOL
+
+
+# ------------------------------------------------------ MoE and xLSTM
+#: The reduced forms of the MoE family (deepseek-moe-16b: a dense first
+#: layer at ``moe_dense_ff``, then MoE layers with a shared expert;
+#: kimi-k2-1t-a32b: GQA 4/2, capacity factor 1.0) and of xLSTM
+#: (mLSTM, sLSTM, mLSTM, sLSTM).
+FAMILIES = ["deepseek-moe-16b", "kimi-k2-1t-a32b", "xlstm-350m"]
+
+
+def family_values(cfg, seed=0):
+    """JAX-initialised weights as numpy, with the leaves that init leaves at
+    0 drawn non-zero (norm scales; the sLSTM's recurrent ``r_*``, which
+    ``init_slstm`` multiplies by 0.0)."""
+    values = _jax_values(cfg, seed)
+    rng = np.random.default_rng(seed + 50)
+
+    def walk(tree):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif name.startswith(("ln", "out_norm")):
+                tree[name] = (rng.normal(size=leaf.shape) * 0.2).astype(leaf.dtype)
+            elif name.startswith("r_"):
+                tree[name] = (rng.normal(size=leaf.shape) / leaf.shape[-1] ** 0.5).astype(
+                    leaf.dtype)
+
+    for seg in values["segments"]:
+        walk(seg)
+    values["final_norm"] = (rng.normal(size=values["final_norm"].shape) * 0.2).astype(
+        values["final_norm"].dtype)
+    return values
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_tree_and_state_dict_names(arch):
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg, device="cpu")
+    jvalues = _jax_values(cfg)
+    from repro_torch.models.common import flatten_tree
+
+    names = {k.replace(".", "/") for k in model.state_dict()}
+    assert names == set(flatten_tree(jvalues))
+    for path, leaf in flatten_tree(jvalues).items():
+        assert tuple(flatten_tree(model.values())[path].shape) == leaf.shape, path
+    real = sum(p.numel() for p in model.parameters())
+    assert real == sum(np.asarray(v).size for v in jax.tree_util.tree_leaves(jvalues))
+    model.init(0)  # the port's own draws fill every leaf
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_bridge_round_trip_is_bit_exact(arch, dtype):
+    c = dataclasses.replace(reduced(get_config(arch)), param_dtype=dtype, compute_dtype=dtype)
+    values = _jax_values(c, seed=5)
+    model = _port_model(c, values)
+    back = values_to_numpy(model)
+    flat_in = jax.tree_util.tree_leaves(values)
+    flat_out = jax.tree_util.tree_leaves(back)
+    assert len(flat_in) == len(flat_out) == len(model.state_dict())
+    for a, b in zip(flat_in, flat_out):
+        if dtype == "bfloat16":
+            assert a.dtype == ml_dtypes.bfloat16 and b.dtype == np.uint16
+            a = a.view(np.uint16)
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch,remat", [("deepseek-moe-16b", "none"),
+                                        ("deepseek-moe-16b", "dots"),
+                                        ("kimi-k2-1t-a32b", "none"),
+                                        ("xlstm-350m", "none"), ("xlstm-350m", "full")])
+def test_family_forward_logits(arch, remat):
+    """Logits and the summed MoE aux (two MoE layers: the capacity drops
+    some of S = 32's assignments) on the training route, with and without
+    per-layer remat; for xLSTM one mLSTM chunk (``min(256, S)``) and 32
+    sLSTM steps."""
+    cfg = reduced(get_config(arch))
+    values = family_values(cfg, seed=2)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    want, want_aux, _ = jbuild(cfg).forward(jax.tree.map(jnp.asarray, values),
+                                            {"tokens": jnp.asarray(tokens)})
+    model = _port_model(cfg, values)
+    got, aux = model({"tokens": t(tokens)}, remat=remat)
+    assert got.shape == (2, 32, cfg.vocab_size) and aux.dtype == torch.float32
+    assert err(got, want) <= TOL
+    assert err(aux, want_aux) <= TOL
+    assert (float(aux.detach()) > 0) == bool(cfg.moe_num_experts)

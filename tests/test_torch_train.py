@@ -213,6 +213,55 @@ def test_hybrid_weight_decay_by_rank_matches_jax():
         assert_updates_match(got[k] - before[k], want[k] - before[k], k)
 
 
+def _family_values(cfg, seed=0):
+    """JAX-initialised weights as numpy with the leaves that init leaves at
+    0 (or 1) drawn non-zero: norm scales, and the sLSTM's ``r_*`` and
+    ``b_*``. A leaf at 0 with a gradient at f32 rounding level (the sLSTM's
+    input gate behind its stabiliser) moves by +-lr on AdamW's first step
+    in either package, so only its size can be compared."""
+    values = jax.tree.map(np.asarray, split_params(jbuild(cfg).init(seed))[0])
+    rng = np.random.default_rng(seed + 1)
+
+    def walk(tree):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf)
+            elif name.startswith(("ln", "out_norm")):
+                tree[name] = rng.uniform(-0.2, 0.2, leaf.shape).astype(np.float32)
+            elif name.startswith("r_"):
+                tree[name] = (rng.normal(size=leaf.shape) / leaf.shape[-1] ** 0.5).astype(
+                    np.float32)
+            elif name.startswith("b_") and leaf.ndim == 2:  # the xLSTM gate biases
+                tree[name] = rng.uniform(-1.0, 1.0, leaf.shape).astype(np.float32)
+
+    for seg in values["segments"]:
+        walk(seg)
+    return values
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m"])
+def test_family_step_matches_jax(arch):
+    """One AdamW step on reduced deepseek-moe-16b (the router aux, weighted
+    by ``router_aux_weight``, in the loss; S = 32 at capacity factor 1.25
+    drops assignments, so the gradient flows through the drop path too) and
+    reduced xlstm-350m (the mLSTM's chunked form and the sLSTM's loop under
+    autograd, with per-layer remat): loss, grad_norm, aux and every
+    parameter within TOL of the reference's."""
+    cfg = reduced(get_config(arch))
+    jstate, jstep, state, step = _pair(cfg, RunConfig(), _family_values(cfg))
+    (b,) = _batches(cfg, 1)
+    jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, b))
+    state, m = step(state, _torch_batch(b))
+    for k in ("loss", "grad_norm", "aux"):
+        assert err(float(m[k]), float(jm[k])) <= TOL, k
+    assert (float(m["aux"]) > 0) == bool(cfg.moe_num_experts)
+    want = _flat_jax(jstate["values"])
+    got = {k: to_numpy(v) for k, v in flatten_tree(state["values"]).items()}
+    assert want.keys() == got.keys()
+    for k in want:
+        assert err(got[k], want[k]) <= TOL, k
+
+
 def test_weight_decay_by_rank_matches_jax():
     """AdamW decays every rank >= 2 leaf: the stacked (L, d) norm scales
     are decayed, final_norm (d,) is not. A large learning rate and non-zero
@@ -324,6 +373,20 @@ def test_launcher_trains_on_cpu_through_the_gather_path(tmp_path, capsys):
     assert summary["device_stats"].kernel_steps >= 3
     assert ckpt.latest_step(tmp_path / "ckpt") == 2
     assert "done: 3 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-350m"])
+def test_launcher_trains_each_family_on_cpu(arch, tmp_path, capsys):
+    """The MoE and xLSTM families train through the launcher at reduced
+    size, the batches assembled by the gather path."""
+    from repro_torch.launch.train import parse_args, train
+
+    args = parse_args(["--arch", arch, "--device", "cpu", "--steps", "2", "--device-path",
+                       "gather", "--num-docs", "64", "--seq-len", "32", "--batch", "4",
+                       "--workdir", str(tmp_path)])
+    summary = train(args)
+    assert summary["steps"] == 2 and all(np.isfinite(summary["losses"]))
+    assert "done: 2 steps" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", [["--device-path", "gather"], ["--resume-data", "d"],
