@@ -107,13 +107,42 @@ and each of which prints its wall time:
    finite logits, and reads the sLSTM blocks' share of a prefill. Then the
    check run in f32: decode step 255 against a fresh prefill of its 2048
    tokens, the logits and the 21 mLSTM and 3 sLSTM states, and the states
-   one token stale as a planted fault, which must read above every bound.
+   one token stale as a planted fault, which must read above every bound;
+11. VLM serving main path: ``repro_torch.launch.serve`` at llava-next-34b
+   full width (60 layers, d_model 7168, 56/8 heads of 128, d_ff 20480,
+   vocab 64000; 2304 patch embeddings of width 1024 projected by the
+   ``frontend`` leaf; bf16), B=4, 2304 zero patches and a 256-token prompt
+   (a 2560-position prefill), 64 new tokens against the reference's ring of
+   320 slots. Checks 60 flash and 60 x 63 decode launches (G = 7 padded to
+   a query group of 8), decode positions after the patches, tokens in
+   range, finite logits and peak memory within the card; profiles 16
+   decode steps (idle share). Then the check run (11c): the same model
+   with a cache that holds every position, seeded random patches, decode
+   at steps 0, 20, 41 and 62 against a fresh prefill (phase 5's bounds,
+   argmax on all rows but one), and a planted stale cache above them;
+12. encoder training main path: ``repro_torch.launch.train`` at
+   hubert-xlarge full width (48 layers, d_model 1280, 16/16 heads of 80,
+   d_ff 5120, vocab 504, non-causal; one-hot frames of width 512 projected
+   in place of the tokens), B=8, S=2048, ``--device-path gather --remat
+   dots --optimizer adafactor`` for 6 steps, then ``--optimizer sgdm`` for
+   3, each checked as phase 4 is (the frames held to the host stream's
+   tokens) and phase 4b's profile of the Adafactor run (12b); then (12c)
+   phi3-medium-14b at full width cut to 2 layers, B=1, S=4096, bf16:
+   ``_chunked_attention_vecq`` against ``_chunked_attention`` on the same
+   q/k/v (2e-2), and 2 AdamW train steps through the vecq path with finite
+   losses.
 
-The last nine lines are the training path's numbers as JSON, the serving
+Phase 6 also holds reduced llava-next-34b (serving, with patches),
+hubert-xlarge and phi3-medium-14b (through vecq) to the CPU in f32:
+logits and two Adafactor and two SGDM steps each. Phase 3 also holds
+both attention kernels at G = 7 and G = 4, D = 128, and times them at
+llava's shapes.
+
+The last eleven lines are the training path's numbers as JSON, the serving
 path's, the hybrid serving path's, the data-service path's, the MoE
-serving path's, the xLSTM serving path's, the card's name and power
-limit, the kernel table as JSON (five kernels), and
-``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
+serving path's, the xLSTM serving path's, the VLM serving path's, the
+encoder training path's, the card's name and power limit, the kernel
+table as JSON (five kernels), and ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
 a directory without the port's sources.
 
     python3 chip_smoke.py --gathers
@@ -126,6 +155,7 @@ side stream), and prints them as JSON last.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -235,6 +265,29 @@ XLSTM_AGREEMENT_STEP = 255
 #: between the two, near 10x from each where the two allow.
 XLSTM_STATE_TOL = {"mlstm.C": 1e-3, "mlstm.n": 1e-3, "slstm.c": 2e-2, "slstm.n": 2e-2,
                    "slstm.h": 1e-2, "slstm.m": 5e-4}
+#: Phase 11: llava-next-34b served at full width (64.07 GiB of bf16
+#: weights): 2304 zero patches and a 256-token prompt prefilled (2560
+#: positions), 63 decode steps against the reference's ring of 320 slots.
+VLM_ARGS = ["--arch", "llava-next-34b", "--full", "--batch", "4", "--prompt-len", "256",
+            "--new-tokens", "64", "--seed", "0"]
+#: Phase 11c's steps held to a fresh prefill (phase 5's bounds, AGREEMENT_TOL
+#: and argmax on all rows but one). At reduced widths with llava's depth,
+#: query group and head dim in bf16, step 10 read 2.1e-2 and the cache one
+#: token stale 5.0e-1 (tests/test_torch_frontends.py).
+VLM_AGREEMENT_STEPS = (0, 20, 41, 62)
+#: Phase 12: hubert-xlarge trained at full width on MAIN_ARGS' store flags,
+#: with Adafactor for 6 steps, then with SGDM for 3.
+ENCODER_ARGS = ["--arch", "hubert-xlarge", "--full", "--nodes", "2", "--batch", "8",
+                "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
+                "--optimizer", "adafactor", "--steps", "6"]
+ENCODER_SGDM_ARGS = ENCODER_ARGS[:-4] + ["--optimizer", "sgdm", "--steps", "3"]
+#: Phase 12c: phi3-medium-14b at full width cut to 2 layers (with AdamW's
+#: f32 state, 16 bytes a parameter, 40 layers would need 235 GB), at S =
+#: 4096 above ``attn_dense_threshold``: ``attention_block`` takes the
+#: sequence-split path. Its output against the chunked path's in bf16.
+VECQ_LAYERS = 2
+VECQ_SEQ = 4096
+VECQ_TOL = 2e-2
 AUTOTUNE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
                  "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
                  "--autotune", "--steps", "3"]
@@ -630,6 +683,57 @@ def check_attention_grid(device) -> None:
                   f"scale-normalised err {err:.3e} (tolerance {tol})")
     check_flash_edges(device)
     check_decode_edges(device)
+    check_attention_groups(device)
+
+
+#: The query groups of phi3-medium-14b (40/10 heads, G = 4) and
+#: llava-next-34b (56/8, G = 7) at head dim 128: flash (B, S, H, KVH) causal,
+#: and decode (B, H, KVH, S) against llava's full ring of 320 slots and a
+#: 1024-slot cache whose mask wraps.
+GROUP_FLASH = ((2, 640, 56, 8), (2, 640, 40, 10))
+GROUP_DECODE = ((3, 56, 8, 320), (3, 40, 10, 1024))
+
+
+def check_attention_groups(device) -> None:
+    """Both attention kernels against their plain versions at G = 7 and G =
+    4, D = 128, bf16 and f32 (GROUP_FLASH, GROUP_DECODE). Decode pads G = 7
+    to a query group of 8; batch row 0 of its mask is fully masked."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.decode_attention.ops import decode_attention, query_group
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for b, s, h, kvh in GROUP_FLASH:
+            q = torch.randn(b, s, h, 128, generator=gen, device=device).to(dt)
+            k, v = (torch.randn(b, s, kvh, 128, generator=gen, device=device).to(dt)
+                    for _ in range(2))
+            got = flash_attention_gqa(q, k, v, causal=True)
+            err = parity.max_err(got, attention_gqa_ref(q, k, v, causal=True))
+            tol = parity.KERNELS["flash_attention"]["tols"][dtype]
+            print(f"flash_attention_gqa (B, S, H/KVH, D)=({b}, {s}, {h}/{kvh}, 128) G={h // kvh} "
+                  f"{dtype} causal: scale-normalised err {err:.3e} (tolerance {tol})")
+            if not err <= tol or not torch.isfinite(got.float()).all():
+                fail(f"flash_attention_gqa at G={h // kvh}, D=128, {dtype}: err {err:.3e} > {tol}")
+        for b, h, kvh, s in GROUP_DECODE:
+            q = torch.randn(b, h, 128, generator=gen, device=device).to(dt)
+            ck, cv = (torch.randn(b, s, kvh, 128, generator=gen, device=device).to(dt)
+                      for _ in range(2))
+            mask = ring_mask(b, s, s - 37, s if s == 320 else s - 5, device)
+            got = decode_attention(q, ck, cv, mask)
+            err = parity.max_err(got, decode_attention_plain(q, ck, cv, mask))
+            tol = parity.KERNELS["decode_attention"]["tols"][dtype]
+            print(f"decode_attention (B, H/KVH, S, D)=({b}, {h}/{kvh}, {s}, 128) G={h // kvh} "
+                  f"(query group {query_group(h // kvh)}) {dtype}: scale-normalised err "
+                  f"{err:.3e} (tolerance {tol}); fully masked row zeros")
+            if not err <= tol or not torch.isfinite(got.float()).all() or got[0].any():
+                fail(f"decode_attention at G={h // kvh}, D=128, {dtype}: err {err:.3e} > {tol} "
+                     f"or row 0 not zeros")
 
 
 #: Flash edge cases at the 128-row tiles' edges: (S, window, causal, (D, G)).
@@ -769,8 +873,10 @@ def check_decode_replay(device) -> None:
 def check_flash_main(device) -> dict:
     """flash_attention at the prefill's shapes: parity as a (BH, S, D) call,
     timing as the GQA call the model makes, at tinyllama's prefill (the
-    row's numbers), at zamba2's (``at_hybrid_shape``) and at
-    deepseek-moe-16b's, 16/16 heads of 128 (``at_moe_shape``)."""
+    row's numbers), at zamba2's (``at_hybrid_shape``), at
+    deepseek-moe-16b's, 16/16 heads of 128 (``at_moe_shape``), and at
+    llava-next-34b's, 2304 patches and 256 tokens over 56/8 heads of 128
+    (``at_vlm_shape``)."""
     from repro_torch.kernels import parity
 
     case = parity.KernelCase("flash_attention", (256, 1920, 64, True), "bfloat16")
@@ -784,10 +890,11 @@ def check_flash_main(device) -> dict:
     row = flash_timing(device, 8, 1920, 32, 4, calls=5)
     hybrid = flash_timing(device, 8, 3584, 32, 32, calls=1)
     moe = flash_timing(device, 8, 1920, 16, 16, d=128, calls=5)
+    vlm = flash_timing(device, 4, 2560, 56, 8, d=128, calls=2)
     spec = parity.KERNELS["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid,
-            "at_moe_shape": moe}
+            "at_moe_shape": moe, "at_vlm_shape": vlm}
 
 
 def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls: int) -> dict:
@@ -839,22 +946,30 @@ def check_decode_main(device) -> dict:
     """decode_attention at the decode's shapes with the real ring mask of
     the last decode step: tinyllama's (cache position 2046 of 2048 slots;
     the row's numbers), zamba2's (4094 of 4096, G = 1;
-    ``at_hybrid_shape``) and deepseek-moe-16b's (2046 of 2048, G = 1, D =
-    128; ``at_moe_shape``)."""
+    ``at_hybrid_shape``), deepseek-moe-16b's (2046 of 2048, G = 1, D =
+    128; ``at_moe_shape``) and llava-next-34b's (position 2622 in a ring of
+    320 slots, every slot valid, G = 7, D = 128; ``at_vlm_shape``), this
+    last beside the launch floor."""
     from repro_torch.kernels import parity
 
     row = decode_timing(device, 8, 32, 4, 2048)
     hybrid = decode_timing(device, 8, 32, 32, 4096)
     moe = decode_timing(device, 8, 16, 16, 2048, d=128)
+    vlm = decode_timing(device, 4, 56, 8, 320, d=128, pos=2622)
+    vlm["floor_ms"] = launch_floor()
+    print(f"decode_attention at llava's shape beside the launch floor (a one-element fill_): "
+          f"{vlm['ms'] * 1e3:.2f} us against {vlm['floor_ms'] * 1e3:.3f} us")
     spec = parity.KERNELS["decode_attention"]
     return {"name": "decode_attention", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid,
-            "at_moe_shape": moe}
+            "at_moe_shape": moe, "at_vlm_shape": vlm}
 
 
-def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64) -> dict:
-    """decode_attention on a (B, S, KVH, D) bf16 cache at position S - 2:
-    parity with its plain version, and kernel / plain / library time."""
+def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64,
+                  pos: int | None = None) -> dict:
+    """decode_attention on a (B, S, KVH, D) bf16 cache at position ``pos``
+    (S - 2 unless given; past S the ring is full): parity with its plain
+    version, and kernel / plain / library time."""
     import torch
     import torch.nn.functional as F
 
@@ -865,7 +980,8 @@ def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64) -> d
 
     case = parity.KernelCase("decode_attention", (b, h, kvh, s, d), "bfloat16")
     q, ck, cv, _ = parity.make_inputs(case, device=device)
-    mask = slot_validity(s - 2, s, 0, device)[None, :].expand(b, s).contiguous()
+    pos = s - 2 if pos is None else pos
+    mask = slot_validity(pos, s, 0, device)[None, :].expand(b, s).contiguous()
     got, want = decode_attention(q, ck, cv, mask), decode_attention_plain(q, ck, cv, mask)
     err = parity.max_err(got, want)
     abs_err = float((got.float() - want.float()).abs().max())
@@ -1176,7 +1292,18 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         store = ChunkStore.open(Path(work) / "chunks")
         host = RedoxLoader.from_spec(summary["spec"], store).epoch(0)
         for i, (feed, ref) in enumerate(zip(staged, host)):
-            for k in ("tokens", "targets", "loss_mask"):
+            keys = ("tokens", "targets", "loss_mask")
+            if "frames" in feed:  # a frame arch: one-hot frames of tokens % frontend_dim
+                frames = feed["frames"]
+                if frames.shape[:2] != (batch, seq_len) or not bool(
+                        (frames.float().sum(-1) == 1).all()):
+                    fail(f"the frames of step {i} are not one-hot")
+                hot = frames.argmax(-1).cpu().numpy()
+                if not (hot == ref["tokens"] % frames.shape[-1]).all():
+                    fail(f"the frames of step {i} are not the host stream's tokens "
+                         f"modulo {frames.shape[-1]}")
+                keys = ("targets", "loss_mask")
+            for k in keys:
                 got = feed[k].cpu().numpy()
                 if got.shape != (batch, seq_len) or not (got == ref[k]).all():
                     fail(f"staged {k} of step {i} differs from the host stream")
@@ -1349,8 +1476,9 @@ def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
 
     model = summary["model"]
     prompts = summary["prompts"].to(model.device)
-    prompt_len = prompts.shape[1]
-    logits, cache = build_prefill_step(model, summary["max_len"])({"tokens": prompts})
+    pos0 = summary.get("pos0", prompts.shape[1])  # after a patch arch's patches
+    logits, cache = build_prefill_step(model, summary["max_len"])(
+        {"tokens": prompts, **summary.get("extra", {})})
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     decode = build_decode_step(model)
     torch.cuda.synchronize()
@@ -1358,7 +1486,7 @@ def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
         for t in range(steps):
             with record_function(f"chip_smoke.decode{t}"):
                 pass
-            logits, cache = decode(cache, tok, prompt_len + t)
+            logits, cache = decode(cache, tok, pos0 + t)
             tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         torch.cuda.synchronize()
     print(f"decode steps 3-{steps}:")
@@ -1496,12 +1624,107 @@ def small_reference(device) -> None:
             fail(f"{device} disagrees with the CPU on the reduced model")
 
 
+def small_inputs(cfg, b: int = 4, s: int = 128, seed: int = 0) -> dict:
+    """Numpy inputs of a reduced model: tokens (patches before them for a
+    ``patch`` arch; frames in their place for a ``frame`` one), targets
+    and a loss mask over every position."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    out = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+           "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+    if cfg.frontend == "frame":
+        out["frames"] = rng.normal(size=(b, s, cfg.frontend_dim)).astype(np.float32)
+        del out["tokens"]
+    elif cfg.frontend == "patch":
+        p = cfg.frontend_len
+        out["patch_embeds"] = rng.normal(size=(b, p, cfg.frontend_dim)).astype(np.float32)
+        out["targets"] = np.concatenate([np.zeros((b, p), np.int32), out["targets"]], 1)
+        out["loss_mask"] = np.concatenate([np.zeros((b, p), np.float32), out["loss_mask"]], 1)
+    return out
+
+
+#: Phase 6's reduced frontend and sequence-split archs: llava-next-34b
+#: (patches), hubert-xlarge (frames, non-causal), and phi3-medium-14b with
+#: ``attn_dense_threshold`` below S = 128 (four blocks of 32), so that its
+#: ``attn_shard="seq"`` attention trains through ``_chunked_attention_vecq``.
+SMALL_FRONTEND_ARCHS = {"llava-next-34b": {}, "hubert-xlarge": {},
+                        "phi3-medium-14b": {"attn_dense_threshold": 64, "attn_chunk": 32}}
+
+
+@contextlib.contextmanager
+def counting_vecq():
+    """A list that gains one entry per ``_chunked_attention_vecq`` call in
+    the block (``attention_block`` finds it by module lookup)."""
+    from repro_torch.models import attention
+
+    calls, vecq = [], attention._chunked_attention_vecq
+    with mock.patch.object(attention, "_chunked_attention_vecq",
+                           lambda *a: calls.append(1) or vecq(*a)):
+        yield calls
+
+
+def small_frontends(device) -> list:
+    """The archs of SMALL_FRONTEND_ARCHS in f32 on ``device`` against the
+    same weights on the CPU: logits, then two train steps with Adafactor
+    and two with SGDM (each step's loss and grad_norm; the second step's
+    loss reads the first update) within SMALL_TOL."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import build_train_step, fresh_train_state
+
+    out = []
+    for arch, changes in SMALL_FRONTEND_ARCHS.items():
+        cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+        batch_np = small_inputs(cfg)
+        cpu_model = build_model(cfg, device="cpu").init(0)
+        results = {}
+        with counting_vecq() as calls:
+            for dev in ("cpu", device):
+                feed = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+                model = build_model(cfg, device=dev)
+                model.load_state_dict(cpu_model.state_dict())
+                with torch.no_grad():
+                    got = [model({k: v for k, v in feed.items()
+                                  if k not in ("targets", "loss_mask")})[0].double().cpu()]
+                for optimizer in ("adafactor", "sgdm"):
+                    model.load_state_dict(cpu_model.state_dict())
+                    run = RunConfig(optimizer=optimizer)
+                    opt = make_optimizer(run)
+                    state, step = fresh_train_state(model, opt), build_train_step(model, run, opt)
+                    for _ in range(2):
+                        state, m = step(state, feed)
+                        got.append(torch.tensor([float(m["loss"]), float(m["grad_norm"])],
+                                                dtype=torch.float64))
+                results[str(dev)] = got
+        (cpu, card) = results["cpu"], results[str(device)]
+        logits_err = float((card[0] - cpu[0]).abs().max() / cpu[0].abs().max())
+        step_err = max(float(((g - c).abs() / c.abs()).max()) for g, c in zip(card[1:], cpu[1:]))
+        print(f"reduced {arch} f32 (vecq calls {len(calls)}): logits err {logits_err:.3e}; "
+              f"Adafactor and SGDM, 2 steps each: losses "
+              f"{[round(float(x[0]), 6) for x in card[1:]]}, worst relative loss / grad_norm "
+              f"err {step_err:.3e} (tolerance {SMALL_TOL})")
+        if not (logits_err <= SMALL_TOL and step_err <= SMALL_TOL):
+            fail(f"{device} disagrees with the CPU on reduced {arch}")
+        if arch == "phi3-medium-14b" and not calls:
+            fail("reduced phi3 did not run _chunked_attention_vecq")
+        out.append({"arch": arch, "logits_err": logits_err, "step_err": step_err,
+                    "vecq_calls": len(calls)})
+    return out
+
+
 def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     """Reduced ``arch`` in f32: prefill + 12 greedy decode steps on
     ``device`` against the same weights on the CPU, with a full cache, a
     16-slot rotating window that the 24-token prompt overfills (archs with
-    attention), and (for tinyllama) an int8 cache. Tokens equal; logits
-    within SMALL_TOL (SMALL_INT8_TOL for int8)."""
+    attention), and (for tinyllama) an int8 cache. A ``patch`` arch
+    prefills seeded random patches before the prompt, and its positions
+    start after them. Tokens equal; logits within SMALL_TOL
+    (SMALL_INT8_TOL for int8)."""
     import numpy as np
     import torch
 
@@ -1518,19 +1741,26 @@ def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     for name, changes, prompt_len, max_len in variants:
         cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
         cpu_model = build_model(cfg, device="cpu").init(0)
-        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, prompt_len))
+        rng = np.random.default_rng(1)
+        prompts = rng.integers(0, cfg.vocab_size, (2, prompt_len))
+        extra, pos0 = {}, prompt_len
+        if cfg.frontend == "patch":
+            extra["patch_embeds"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32))
+            pos0 += cfg.frontend_len
         results = []
         for dev in ("cpu", device):
             model = build_model(cfg, device=dev)
             model.load_state_dict(cpu_model.state_dict())
             decode = build_decode_step(model)
             logits, cache = build_prefill_step(model, max_len)(
-                {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev)})
+                {"tokens": torch.from_numpy(prompts.astype(np.int32)).to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}})
             logs = [logits[:, -1].double().cpu()]
             tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
             toks = [tok.cpu()]
             for t in range(max_len - prompt_len - 1):
-                logits, cache = decode(cache, tok, prompt_len + t)
+                logits, cache = decode(cache, tok, pos0 + t)
                 logs.append(logits[:, 0].double().cpu())
                 tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
                 toks.append(tok.cpu())
@@ -1845,10 +2075,12 @@ def moe_prefill_drops(summary) -> dict:
             "per_layer_share": [d / n for d, n in seen]}
 
 
-def moe_path(argv) -> tuple[dict, dict]:
-    """Drive ``repro_torch.launch.serve`` on deepseek-moe-16b with ``argv``;
-    check it; return its numbers and the run's summary (counts zeroed just
-    before)."""
+def attention_serve_path(argv) -> tuple[dict, dict]:
+    """Drive ``repro_torch.launch.serve`` with ``argv`` on a model whose
+    every layer attends (counts zeroed just before); check one flash launch
+    a layer in the prefill, one decode launch a layer and step, no other
+    kernel, tokens in range and finite logits; return its numbers and the
+    run's summary."""
     import torch
 
     from repro_torch.launch.serve import build_parser, serve
@@ -1879,6 +2111,21 @@ def moe_path(argv) -> tuple[dict, dict]:
     if not all(bool(torch.isfinite(x).all())
                for x in (summary["prefill_logits"], summary["logits"][steps - 1])):
         fail("a kept logit is not finite")
+    print("first sequence:", tokens[0, :16].tolist(), "...")
+    run = {"launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
+           "params": summary["params"], "param_count": cfg.param_count(),
+           "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
+           "decode_tok_s": summary["decode_tok_s"],
+           "steady_decode_tok_s": summary["steady_decode_tok_s"],
+           "max_memory_allocated_gib": peak / 2**30}
+    return run, summary
+
+
+def moe_path(argv) -> tuple[dict, dict]:
+    """:func:`attention_serve_path` on deepseek-moe-16b, then the share of
+    the prefill's routed assignments that capacity dropped."""
+    run, summary = attention_serve_path(argv)
+    cfg = summary["model"].cfg
     drops = moe_prefill_drops(summary)
     print(f"prefill capacity drops (capacity factor {cfg.capacity_factor}): "
           f"{drops['dropped']:,d} of {drops['routed']:,d} routed assignments over "
@@ -1887,20 +2134,15 @@ def moe_path(argv) -> tuple[dict, dict]:
           f"drops none (one token's top-{cfg.moe_top_k} experts are distinct, cap 1)")
     if drops["moe_layers"] != cfg.num_layers - cfg.moe_first_dense:
         fail(f"the prefill ran {drops['moe_layers']} MoE layers")
-    print("first sequence:", tokens[0, :16].tolist(), "...")
-    run = {"launches": {k: launches[k] for k in ("flash_attention", "decode_attention")},
-           "params": summary["params"], "param_count": cfg.param_count(),
-           "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
-           "decode_tok_s": summary["decode_tok_s"],
-           "steady_decode_tok_s": summary["steady_decode_tok_s"],
-           "max_memory_allocated_gib": peak / 2**30, "prefill_drops": drops}
+    run["prefill_drops"] = drops
     return run, summary
 
 
 def stale_cache_reading(summary, t: int) -> dict:
     """The planted fault: decode step ``t`` against a cache one token
-    stale, the K/V of token ``t - 1`` (position P + t - 1) never written (its
-    slot zero in every layer), held to the same fresh prefill as the sound
+    stale, the K/V of token ``t - 1`` (position pos0 + t - 1, pos0 the
+    prompt length, after a patch arch's patches) never written (its slot
+    zero in every layer), held to the same fresh prefill as the sound
     step."""
     import torch
 
@@ -1908,14 +2150,15 @@ def stale_cache_reading(summary, t: int) -> dict:
     from repro_torch.train.train_step import build_decode_step, build_prefill_step
 
     model = summary["model"]
-    p = summary["prompts"].shape[1]
+    pos0 = summary.get("pos0", summary["prompts"].shape[1])
     seq = torch.cat([summary["prompts"], summary["tokens"][:, :t + 1]], dim=1).to(model.device)
-    _, cache = build_prefill_step(model, summary["max_len"])({"tokens": seq[:, :-1]})
+    _, cache = build_prefill_step(model, summary["max_len"])(
+        {"tokens": seq[:, :-1], **summary.get("extra", {})})
     with torch.inference_mode():
         for entry in cache:
-            entry["k"][:, :, p + t - 1] = 0
-            entry["v"][:, :, p + t - 1] = 0
-    logits, _ = build_decode_step(model)(cache, seq[:, -1:], p + t)
+            entry["k"][:, :, pos0 + t - 1] = 0
+            entry["v"][:, :, pos0 + t - 1] = 0
+    logits, _ = build_decode_step(model)(cache, seq[:, -1:], pos0 + t)
     del cache
     (row,) = prefill_agreement({**summary, "logits": {t: logits[:, 0].float()}}, (t,))
     return row
@@ -2075,6 +2318,161 @@ def xlstm_agreement(argv) -> dict:
     return {"dtype": cfg.param_dtype, "agreement": row}
 
 
+# -------------------------------------------------------------- phase 11
+def vlm_path(argv) -> tuple[dict, dict]:
+    """:func:`attention_serve_path` on llava-next-34b (zero patches before
+    each prompt, as the reference serves them), then its decode positions
+    (after the patches and the prompt) and its peak memory (within the
+    card)."""
+    import torch
+
+    run, summary = attention_serve_path(argv)
+    cfg = summary["model"].cfg
+    prompt_len = summary["prompts"].shape[1]
+    print(f"prefill of {cfg.frontend_len} patches and {prompt_len} tokens; decode from "
+          f"position {summary['pos0']}")
+    if summary["pos0"] != cfg.frontend_len + prompt_len:
+        fail(f"decode starts at position {summary['pos0']}, not after the patches and prompt")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if run["max_memory_allocated_gib"] * 2**30 >= total:
+        fail(f"peak device memory {run['max_memory_allocated_gib']:.2f} GiB")
+    run["prefill_tokens"] = cfg.frontend_len + prompt_len
+    return run, summary
+
+
+def vlm_agreement(summary, new_tokens: int) -> dict:
+    """Phase 11c: decode against a fresh prefill on the served llava-next-34b,
+    bf16, full width. The serving cache is a ring of prompt + new slots (the
+    reference's rule), so decode there is not a fresh prefill's last
+    position; this check sizes its own cache to hold every position
+    (patches, prompt and ``new_tokens``), prefills seeded random patches
+    (so the projection counts) before the served prompts, decodes greedily,
+    and holds steps VLM_AGREEMENT_STEPS to phase 5's bounds (argmax equal
+    on all rows but one), and the planted stale-cache fault above them."""
+    import torch
+
+    from repro_torch.launch.serve import prefill_agreement
+    from repro_torch.train.train_step import build_decode_step, build_prefill_step
+
+    model = summary["model"]
+    cfg, device = model.cfg, model.device
+    prompts = summary["prompts"]
+    b, p = prompts.shape
+    gen = torch.Generator(device=device).manual_seed(11)
+    patches = torch.randn((b, cfg.frontend_len, cfg.frontend_dim), generator=gen,
+                          device=device).to(getattr(torch, cfg.compute_dtype))
+    pos0 = cfg.frontend_len + p
+    max_len = pos0 + new_tokens
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = build_prefill_step(model, max_len)(
+        {"tokens": prompts.to(device), "patch_embeds": patches})
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    out, kept = [tok], {}
+    decode = build_decode_step(model)
+    for t in range(new_tokens - 1):
+        logits, cache = decode(cache, tok, pos0 + t)
+        tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(tok)
+        if t in VLM_AGREEMENT_STEPS:
+            kept[t] = logits[:, 0].float()
+    del cache, logits
+    check = {"model": model, "prompts": prompts, "tokens": torch.cat(out, 1).cpu(),
+             "logits": kept, "extra": {"patch_embeds": patches}, "pos0": pos0,
+             "max_len": max_len}
+    rows = prefill_agreement(check, VLM_AGREEMENT_STEPS)
+    stale = stale_cache_reading(check, VLM_AGREEMENT_STEPS[-1])
+    peak = torch.cuda.max_memory_allocated()
+    min_rows = b - 1
+    for r in rows:
+        print(f"{cfg.compute_dtype}: decode step {r['step']} vs a fresh prefill of {cfg.frontend_len} patches "
+              f"and {p + r['step'] + 1} tokens (cache {max_len} slots): scale-normalised err "
+              f"{r['err']:.3e} (tolerance {AGREEMENT_TOL}), argmax agrees on "
+              f"{r['argmax_agree']}/{r['rows']} rows (at least {min_rows})")
+    print(f"planted fault, token t - 1's K/V zeroed at step {stale['step']}: err "
+          f"{stale['err']:.3e}, argmax agrees on {stale['argmax_agree']}/{stale['rows']}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if not stale["err"] > AGREEMENT_TOL:
+        fail("the bound does not tell a cache one token stale from a sound one")
+    for r in rows:
+        if not (r["err"] <= AGREEMENT_TOL and r["argmax_agree"] >= min_rows):
+            fail(f"decode step {r['step']} disagrees with a fresh prefill")
+    return {"cache_slots": max_len, "agreement": rows, "stale_cache": stale,
+            "max_memory_allocated_gib": peak / 2**30}
+
+
+# -------------------------------------------------------------- phase 12
+def encoder_path() -> dict:
+    """Phase 12: ``repro_torch.launch.train`` on hubert-xlarge with
+    Adafactor (ENCODER_ARGS, the first loss near ln(504)), then 3 steps
+    with SGDM (ENCODER_SGDM_ARGS); each run checked as phase 4's is, its
+    one-hot frames held to the host stream's tokens."""
+    run = main_path(ENCODER_ARGS, batch=8, seq_len=2048, vocab=504)
+    run["sgdm"] = main_path(ENCODER_SGDM_ARGS, batch=8, seq_len=2048, vocab=504)
+    return run
+
+
+def vecq_check(device) -> dict:
+    """Phase 12c: phi3-medium-14b at full width, its depth cut to
+    VECQ_LAYERS, B = 1, S = 4096, bf16. ``_chunked_attention_vecq`` (4
+    query blocks of 1024, all at once) against ``_chunked_attention`` on
+    the same q/k/v (40 query heads, 10 kv heads expanded, head dim 128),
+    scale-normalised within VECQ_TOL; then 2 AdamW train steps through
+    ``attention_block``, which must take the vecq path, with finite losses
+    (the first near ln(vocab))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import attention, build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    cfg = dataclasses.replace(get_config("phi3-medium-14b"), num_layers=VECQ_LAYERS)
+    s, h, kvh, d = VECQ_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device=device).manual_seed(12)
+    q = torch.randn(1, s, h, d, generator=gen, device=device).bfloat16()
+    k, v = (attention._expand_kv(torch.randn(1, s, kvh, d, generator=gen, device=device)
+                                 .bfloat16(), cfg) for _ in range(2))
+    with torch.no_grad():
+        got = attention._chunked_attention_vecq(q, k, v, cfg)
+        want = attention._chunked_attention(q, k, v, cfg)
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    print(f"_chunked_attention_vecq vs _chunked_attention, q (1, {s}, {h}, {d}), k/v {kvh} "
+          f"heads expanded, bf16, {s // cfg.attn_chunk} query blocks: scale-normalised err "
+          f"{err:.3e} (tolerance {VECQ_TOL})")
+    if not err <= VECQ_TOL or not torch.isfinite(got.float()).all():
+        fail(f"_chunked_attention_vecq disagrees with _chunked_attention: {err:.3e}")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=device)
+    run = RunConfig()
+    opt = make_optimizer(run)
+    state = init_train_state(model, opt, 0)
+    step = build_train_step(model, run, opt)
+    tokens = np.random.default_rng(12).integers(0, cfg.vocab_size, (1, s + 1)).astype(np.int32)
+    feed = {"tokens": torch.from_numpy(tokens[:, :-1]).to(device),
+            "targets": torch.from_numpy(tokens[:, 1:]).to(device),
+            "loss_mask": torch.ones((1, s), device=device)}
+    losses = []
+    with counting_vecq() as calls:
+        for _ in range(2):
+            state, m = step(state, feed)
+            losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phi3-medium-14b, {VECQ_LAYERS} layers at full width, B=1, S={s}, AdamW, remat "
+          f"dots: losses {losses}; {len(calls)} vecq calls (forward and remat recompute); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if len(calls) < 2 * VECQ_LAYERS:
+        fail(f"attention_block took the vecq path {len(calls)} times in 2 steps")
+    if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(cfg.vocab_size)) > 2:
+        fail(f"phi3 losses {losses}: not finite, or the first not near ln({cfg.vocab_size})")
+    del model, state
+    return {"layers": VECQ_LAYERS, "seq_len": s, "vecq_err": err, "vecq_calls": len(calls),
+            "losses": losses, "max_memory_allocated_gib": peak / 2**30}
+
+
 def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
@@ -2184,13 +2582,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -------------------------------------- 6. small-input reference check
-    phase("6. reduced tinyllama, zamba2, deepseek-moe-16b and xlstm-350m f32: card vs CPU "
-          "on the same weights")
+    phase("6. reduced tinyllama, zamba2, deepseek-moe-16b, xlstm-350m, llava-next-34b, "
+          "hubert-xlarge and phi3-medium-14b f32: card vs CPU on the same weights")
     small_reference(device)
     serve_run["small_serving"] = small_serving(device)
     small_hybrid = small_serving(device, "zamba2-1.2b")
     small_moe = small_serving(device, "deepseek-moe-16b")
     small_xlstm = small_serving(device, "xlstm-350m")
+    small_vlm = small_serving(device, "llava-next-34b")
+    small_frontend = small_frontends(device)
 
     # ---------------------------------------------- 7. hybrid serving path
     phase("7. hybrid serving main path: repro_torch.launch.serve " + " ".join(HYBRID_ARGS))
@@ -2238,21 +2638,53 @@ def main(argv=None) -> int:
     phase(f"10b. xLSTM decode step {XLSTM_AGREEMENT_STEP} vs a fresh prefill, f32")
     xlstm_run["check"] = xlstm_agreement(XLSTM_ARGS)
     torch.cuda.empty_cache()
+
+    # --------------------------------------------- 11. VLM serving path
+    phase("11. VLM serving main path: repro_torch.launch.serve " + " ".join(VLM_ARGS))
+    vlm_run, summary = vlm_path(VLM_ARGS)
+    vlm_run["small_serving"] = small_vlm
+
+    phase("11b. where the VLM decode's device time goes (torch.profiler)")
+    vlm_run["decode_profile"] = where_decode_time_goes(summary)
+
+    phase("11c. VLM decode vs a fresh prefill, bf16, a cache that holds the patches")
+    vlm_run["check"] = vlm_agreement(summary, int(VLM_ARGS[VLM_ARGS.index("--new-tokens") + 1]))
+    del summary
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- 12. encoder training path
+    phase("12. encoder training main path: repro_torch.launch.train " + " ".join(ENCODER_ARGS)
+          + "; then --optimizer sgdm --steps 3")
+    enc_run = encoder_path()
+    enc_run["small_reference"] = small_frontend
+    torch.cuda.empty_cache()
+
+    phase("12b. where the encoder training path's device time goes (torch.profiler)")
+    enc_run["profile"] = where_time_goes(ENCODER_ARGS)
+    torch.cuda.empty_cache()
+
+    phase(f"12c. sequence-split attention: phi3-medium-14b, {VECQ_LAYERS} layers at full width, "
+          f"B=1, S={VECQ_SEQ}, bf16")
+    enc_run["vecq"] = vecq_check(device)
+    torch.cuda.empty_cache()
     phase(None)
 
-    # Launches in the main paths' runs: flash and decode run in the three
+    # Launches in the main paths' runs: flash and decode run in the four
     # attention serving paths, ssd_scan in the hybrid's; the raw gather is
     # on no path, and the xLSTM path launches no kernel.
     by_path = {"serve_path": serve_run["launches"], "hybrid_path": hybrid_run["launches"],
-               "moe_path": moe_run["launches"]}
+               "moe_path": moe_run["launches"], "vlm_path": vlm_run["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         counts = {path: launches[name] for path, launches in by_path.items() if name in launches}
         kernels[name]["launches"] = sum(counts.values())
         kernels[name]["launches_by_path"] = counts
-    # The training gather runs on phase 4's path and phase 8's autotuned
-    # one; the data-server path ships assembled grids and launches none.
+    # The training gather runs on phase 4's path, phase 8's autotuned one
+    # and phase 12's two; the data-server path ships assembled grids and
+    # launches none.
     counts = {"main_path": run["launches"], "data_service_path": ds_run["gather_launches"],
-              "autotune_path": ds_run["autotune"]["gather_launches"]}
+              "autotune_path": ds_run["autotune"]["gather_launches"],
+              "encoder_path": enc_run["launches"],
+              "encoder_sgdm_path": enc_run["sgdm"]["launches"]}
     kernels["chunk_gather_train"]["launches"] = sum(counts.values())
     kernels["chunk_gather_train"]["launches_by_path"] = counts
 
@@ -2264,6 +2696,8 @@ def main(argv=None) -> int:
     print(json.dumps({"data_service_path": ds_run}))
     print(json.dumps({"moe_path": moe_run}))
     print(json.dumps({"xlstm_path": xlstm_run}))
+    print(json.dumps({"vlm_path": vlm_run}))
+    print(json.dumps({"encoder_path": enc_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@
         --batch 8 --prompt-len 1920 --new-tokens 128 --seed 0
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --full \
         --batch 8 --prompt-len 1792 --new-tokens 257 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b --full \
+        --batch 4 --prompt-len 256 --new-tokens 64 --seed 0
 
 Runs on the CUDA card by default (``--device cpu`` for the CPU, where the
 attention kernels' plain versions run); a missing or non-Hopper card is an
@@ -23,11 +25,17 @@ most 256 tokens or a multiple of 256 (the mLSTM chunk), the reference's
 rules. xLSTM runs no kernel: its cells are plain PyTorch, as the
 reference's are jnp.
 
+A ``patch`` arch (llava-next-34b) prefills zero patch embeddings
+(``frontend_len`` of them) before the prompt, and its decode positions
+start after both. The cache keeps ``prompt_len + new_tokens`` slots, as
+the reference's does, so a prefill longer than that (patches included)
+leaves only its last positions in a rotating cache: decode then attends
+the last ``prompt_len + new_tokens`` positions, not the patches.
+
 ``--list-archs`` prints every registered arch with its serving capability
-and exits 0; asking to serve an encoder-only arch exits 1. An arch with a
-frontend stub (llava-next-34b) raises ``NotImplementedError`` naming its
-ROADMAP item, as does ``moe_impl="a2a"``. ``--seed`` makes the random prompts and weights
-reproducible. :func:`serve` is the same run as a function, for callers
+and exits 0; asking to serve an encoder-only arch (hubert-xlarge) exits 1.
+``moe_impl="a2a"`` raises ``NotImplementedError`` naming its ROADMAP item.
+``--seed`` makes the random prompts and weights reproducible. :func:`serve` is the same run as a function, for callers
 that check its output.
 """
 
@@ -82,9 +90,12 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     """Prefill ``args.batch`` random prompts, then decode greedily.
 
     Returns ``prompts`` (B, P) and ``tokens`` (B, new_tokens) as CPU int32
-    tensors, ``prefill_logits`` (B, V) f32, ``logits`` {t: (B, V) f32} for
-    each decode step ``t`` in ``keep_logits`` (step ``t`` reads token ``t``
-    at position P + t and predicts token t + 1), ``prefill_s``,
+    tensors, ``extra`` (the prefill's other inputs: a ``patch`` arch's
+    ``patch_embeds`` on the device, else none), ``pos0`` (the position of
+    token 0: P, after ``frontend_len`` patches for a ``patch`` arch),
+    ``prefill_logits`` (B, V) f32, ``logits`` {t: (B, V) f32} for each
+    decode step ``t`` in ``keep_logits`` (step ``t`` reads token ``t`` at
+    position ``pos0 + t`` and predicts token t + 1), ``prefill_s``,
     ``decode_s`` (all decode steps), ``decode_tok_s`` and
     ``steady_decode_tok_s`` (steps 2+, None with fewer than two steps),
     and the ``model``.
@@ -110,7 +121,13 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
           f"new={args.new_tokens}")
 
     keep, keep_st = set(keep_logits), set(keep_states)
-    inputs = {"tokens": prompts.to(device)}
+    extra, pos0 = {}, args.prompt_len
+    if cfg.frontend == "patch":
+        extra["patch_embeds"] = torch.zeros(
+            (args.batch, cfg.frontend_len, cfg.frontend_dim),
+            dtype=getattr(torch, cfg.compute_dtype), device=device)
+        pos0 += cfg.frontend_len
+    inputs = {"tokens": prompts.to(device), **extra}
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = prefill(inputs)
@@ -124,7 +141,7 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     _sync(device)
     t0 = time.perf_counter()
     for t in range(args.new_tokens - 1):
-        logits, cache = decode(cache, tok, args.prompt_len + t)
+        logits, cache = decode(cache, tok, pos0 + t)
         tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         out.append(tok)
         if t in keep:
@@ -140,7 +157,8 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     steps = args.new_tokens - 1
     tokens = torch.cat(out, dim=1).cpu()
     summary = dict(
-        prompts=prompts, tokens=tokens, prefill_logits=prefill_logits, logits=kept,
+        prompts=prompts, tokens=tokens, extra=extra, pos0=pos0,
+        prefill_logits=prefill_logits, logits=kept,
         states=states, params=params,
         prefill_s=prefill_s, decode_s=decode_s,
         decode_tok_s=steps * args.batch / decode_s if steps else None,
@@ -163,7 +181,8 @@ def prefill_agreement(summary: dict, steps) -> list[dict]:
     """Hold decode against prefill on one :func:`serve` run.
 
     For each decode step ``t`` in ``steps`` (kept in ``summary["logits"]``),
-    a fresh prefill over the prompt plus tokens 0..t must give, at its last
+    a fresh prefill over the prompt plus tokens 0..t, after the run's
+    ``extra`` inputs (a ``patch`` arch's patches), must give, at its last
     position, the logits decode step ``t`` gave. Returns per step the
     scale-normalised max error ``max |decode - prefill| / max |prefill|``
     and the number of rows whose argmax agrees. Where the run kept the
@@ -174,11 +193,13 @@ def prefill_agreement(summary: dict, steps) -> list[dict]:
     """
     model = summary["model"]
     device = model.device
+    extra = summary.get("extra", {})
+    offset = summary.get("pos0", summary["prompts"].shape[1]) - summary["prompts"].shape[1]
     out = []
     for t in steps:
         seq = torch.cat([summary["prompts"], summary["tokens"][:, : t + 1]], dim=1)
-        ref, caches = build_prefill_step(model, max_len=seq.shape[1])(
-            {"tokens": seq.to(device)})
+        ref, caches = build_prefill_step(model, max_len=offset + seq.shape[1])(
+            {"tokens": seq.to(device), **extra})
         ref = ref[:, -1].float()
         got = summary["logits"][t]
         agree = int((got.argmax(-1) == ref.argmax(-1)).sum())

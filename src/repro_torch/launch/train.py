@@ -16,6 +16,14 @@ process and consumes batches from the shared-memory ring (DESIGN.md §11).
 With ``--autotune`` the freshly built store is calibrated and reopened
 with the backend and readahead the §6 time model picks (DESIGN.md §14).
 
+A stub-frontend arch trains on the same token grids, its inputs built on
+the card after staging (``_feed``): hubert-xlarge on one-hot frames,
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --full --device-path gather --batch 8 --seq-len 2048 --optimizer adafactor
+
+and llava-next-34b on zero patch embeddings before the tokens.
+
 The parser is built from the same ``cli.py`` builders as the reference's,
 so every flag is spelled the same.
 """
@@ -30,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..checkpoint.ckpt import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..configs import RunConfig, get_config, list_archs, reduced
@@ -132,14 +141,29 @@ def _local_metrics(loader, store, stager) -> MetricsRegistry:
     return reg
 
 
-def _feed(batch, device) -> dict:
-    """The train step's inputs on ``device`` (staged batches already are)."""
+def _feed(batch, device, cfg) -> dict:
+    """The train step's inputs on ``device`` (staged batches already are),
+    with a stub-frontend arch's inputs built there from the token grid, as
+    the reference launcher builds them: ``frame`` feeds one-hot frames of
+    ``tokens % frontend_dim`` in place of the tokens; ``patch`` feeds zero
+    patch embeddings before them, and its targets and loss mask gain
+    ``frontend_len`` leading zeros."""
     out = {}
     for k in _FEED_KEYS:
         v = batch[k]
         if not isinstance(v, torch.Tensor):
             v = torch.from_numpy(np.ascontiguousarray(v))
         out[k] = v.to(device)
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend == "frame":
+        tokens = out.pop("tokens")
+        out["frames"] = F.one_hot((tokens % cfg.frontend_dim).long(),
+                                  cfg.frontend_dim).to(cdt)
+    elif cfg.frontend == "patch":
+        b, p = out["tokens"].shape[0], cfg.frontend_len
+        out["patch_embeds"] = torch.zeros((b, p, cfg.frontend_dim), dtype=cdt, device=device)
+        for k in ("targets", "loss_mask"):
+            out[k] = torch.cat([out[k].new_zeros((b, p)), out[k]], dim=1)
     return out
 
 
@@ -261,6 +285,10 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
         restore_checkpoint(workdir / "ckpt", start, state)
         print(f"resumed from step {start}")
 
+    if cfg.frontend != "none":
+        print("note: stub-frontend arch — launcher trains on token records "
+              "projected through the frontend stub")
+
     step = int(start or 0)
     run_steps = 0
     losses = []
@@ -272,7 +300,7 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
         for batch in epoch_batches(epoch):
             if step >= args.steps:
                 break
-            feed = _feed(batch, device)
+            feed = _feed(batch, device, cfg)
             if on_batch is not None:
                 on_batch(step, feed)
             if tracer is None:

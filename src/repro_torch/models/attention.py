@@ -12,7 +12,9 @@ is a causal forward with no gradient, so it calls ``flash_attention_gqa``;
 one-token decode calls ``decode_attention`` against the KV cache, which it
 updates in place (the reference donates it). Training keeps the plain
 paths: the flash kernel has no backward and refuses inputs that require
-grad. The sequence-sharded ``_chunked_attention_vecq`` is not ported yet.
+grad. Above ``attn_dense_threshold`` a config with ``attn_shard="seq"``
+(phi3, llava) trains through ``_chunked_attention_vecq``, the others
+through ``_chunked_attention``.
 """
 
 from __future__ import annotations
@@ -130,6 +132,53 @@ def _chunked_attention(q, k, v, cfg):
     return torch.stack(blocks, dim=1).reshape(b, s, h, d)
 
 
+def _chunked_attention_vecq(q, k, v, cfg):
+    """Online-softmax over KV chunks with every query block at once.
+
+    The reference's ``attn_shard="seq"`` path: the query blocks are one
+    batch axis (which the reference shards over its model axis) and a loop
+    over kv blocks carries f32 ``m``, ``l`` and ``acc`` of shape (b, nq, h,
+    blk[, d]). Unlike :func:`_chunked_attention` it zeroes ``p`` where the
+    mask is off. The outputs agree all the same: the ones that
+    ``exp(NEG_INF - NEG_INF)`` adds there for a kv block a row cannot see
+    (a window) are wiped by ``corr = 0`` at the row's first valid key.
+    """
+    blk = min(cfg.attn_chunk, q.shape[1])
+    b, s, h, d = q.shape
+    if s % blk:
+        raise ValueError(f"seq {s} is not a multiple of attn_chunk {blk}")
+    nq = s // blk
+    scale = d**-0.5
+    qb = q.reshape(b, nq, blk, h, d)
+    kb = k.reshape(b, nq, blk, h, d)
+    vb = v.reshape(b, nq, blk, h, d)
+    qpos = (torch.arange(nq, device=q.device)[:, None, None] * blk
+            + torch.arange(blk, device=q.device)[None, :, None])  # (nq, blk, 1)
+    m = torch.full((b, nq, h, blk), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, nq, h, blk), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, nq, h, blk, d), dtype=torch.float32, device=q.device)
+    for ki in range(nq):
+        kk = kb[:, ki]  # (b, blk, h, d)
+        vv = vb[:, ki]
+        logits = torch.einsum("bnqhd,bkhd->bnhqk", qb, kk).float() * scale
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        kpos = (ki * blk + torch.arange(blk, device=q.device))[None, None, :]
+        mask = _mask(qpos, kpos, cfg)[None, :, None]  # (1, nq, 1, blk, blk)
+        logits = torch.where(mask, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bnhqk,bkhd->bnhqd", p.to(vv.dtype), vv
+        ).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
 def _no_softcap(cfg) -> None:
     if cfg.logit_softcap:
         raise NotImplementedError(
@@ -162,10 +211,7 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     if s <= cfg.attn_dense_threshold:
         out = _dense_attention(q, k, v, cfg)
     elif cfg.attn_shard == "seq":
-        raise NotImplementedError(
-            "attn_shard='seq' (_chunked_attention_vecq) is not ported yet: "
-            "ROADMAP.md §1 item 5 (dense-family remainder)"
-        )
+        out = _chunked_attention_vecq(q, k, v, cfg)
     else:
         out = _chunked_attention(q, k, v, cfg)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]

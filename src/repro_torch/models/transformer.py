@@ -40,7 +40,13 @@ every layer against it (attention through the decode-attention kernel, an
 ``attn_moe`` layer's experts through ``moe_block`` on that token),
 updating it in place.
 
-The frontend stubs and ``moe_impl="a2a"`` are not ported and raise.
+The frontend stubs are the reference's: a ``frontend`` leaf of shape
+``(frontend_dim, d_model)`` projects precomputed inputs into the
+decoder. ``patch`` (llava) puts ``patch_embeds @ frontend`` before the
+embedded tokens; ``frame`` (hubert) feeds ``frames @ frontend`` in place of
+them, so the token embedding is never read (its gradient is zero, and the
+optimizers still decay it, as the reference's do). ``decode_step`` embeds
+tokens only. ``moe_impl="a2a"`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -286,11 +292,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         kinds = [kind for kind, _ in cfg.segments()]
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend!r} frontend stub is not ported "
-                "yet: ROADMAP.md §1 item 5 (dense-family remainder)"
-            )
         if cfg.moe_impl == "a2a" and "attn_moe" in kinds:
             raise NotImplementedError(
                 f"{cfg.name}: moe_impl='a2a' (moe_block_a2a) needs a mesh with a "
@@ -306,6 +307,10 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.empty((d, v), dtype=dtype, device=self.device)
+            )
+        if cfg.frontend != "none":
+            self.frontend = nn.Parameter(
+                torch.empty((cfg.frontend_dim, d), dtype=dtype, device=self.device)
             )
         self.segments = nn.ModuleList(
             _Tree() if kind == "shared_attn" else _Segment(kind, count, cfg, dtype, self.device)
@@ -330,6 +335,11 @@ class Model(nn.Module):
             self.lm_head.copy_(
                 (torch.randn((d, v), generator=gen, device=self.device) / d**0.5).to(dtype)
             )
+        if cfg.frontend != "none":
+            self.frontend.copy_(
+                (torch.randn((cfg.frontend_dim, d), generator=gen, device=self.device)
+                 / cfg.frontend_dim**0.5).to(dtype)
+            )
         shared_drawn = False
         for (kind, _), seg in zip(cfg.segments(), self.segments):
             if kind != "shared_attn":
@@ -345,14 +355,28 @@ class Model(nn.Module):
                "segments": [seg.values() for seg in self.segments]}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
+        if self.cfg.frontend != "none":
+            out["frontend"] = self.frontend
         if self.shared_attn is not None:
             out["shared_attn"] = self.shared_attn.values()
         return out
 
     # ---------------------------------------------------------- forward
+    def _embed_tokens(self, tokens):
+        return F.embedding(tokens, self.embed).to(_dtype(self.cfg.compute_dtype))
+
     def _embed_inputs(self, inputs):
-        cdt = _dtype(self.cfg.compute_dtype)
-        return F.embedding(inputs["tokens"], self.embed).to(cdt)
+        """The decoder's input rows: tokens embedded, after the projected
+        patches (``patch``), or the projected frames alone (``frame``)."""
+        frontend = self.cfg.frontend
+        if frontend == "frame":
+            cdt = _dtype(self.cfg.compute_dtype)
+            return inputs["frames"].to(cdt) @ self.frontend.to(cdt)
+        x = self._embed_tokens(inputs["tokens"])
+        if frontend == "patch":
+            pe = inputs["patch_embeds"].to(x.dtype) @ self.frontend.to(x.dtype)
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -360,7 +384,10 @@ class Model(nn.Module):
         return x @ head.to(x.dtype)
 
     def forward(self, inputs: dict, *, remat: str = "none", want_cache: bool = False):
-        """Full-sequence pass over ``inputs["tokens"]`` (B, S) int.
+        """Full-sequence pass over ``inputs["tokens"]`` (B, S) int, after
+        ``inputs["patch_embeds"]`` (B, P, frontend_dim) for a ``patch``
+        frontend, or over ``inputs["frames"]`` (B, S, frontend_dim) alone for
+        a ``frame`` one.
 
         Returns ``(logits (B, S, V), aux)``; ``aux`` is the f32 sum of the
         ``attn_moe`` layers' load-balance losses, in layer order (zero
@@ -427,7 +454,7 @@ class Model(nn.Module):
         the absolute position of that token. Updates ``caches`` in place
         and returns ``(logits (B, 1, V), caches)``."""
         cfg = self.cfg
-        x = self._embed_inputs({"tokens": tokens})
+        x = self._embed_tokens(tokens)
         for (kind, _), seg, cache in zip(cfg.segments(), self.segments, caches):
             if kind == "shared_attn":
                 x = _decode_block(kind, self.shared_attn.values(), x,

@@ -1,4 +1,4 @@
-"""Optimizers: AdamW with an f32 master copy (``repro/optim/optimizers.py``).
+"""Optimizers: AdamW, Adafactor and SGD-momentum (``repro/optim/optimizers.py``).
 
 A tree here is the flat ``{path: tensor}`` dict of
 :func:`repro_torch.models.common.flatten_tree`, in the reference's leaf
@@ -9,11 +9,20 @@ every tensor of rank >= 2 (the stacked ``(L, d)`` norm scales included,
 ``final_norm`` not), and the new parameter is the f32 master cast to the
 parameter dtype.
 
+Adafactor (decay 0.8, eps 1e-30, RMS clip 1.0) keeps, per leaf of rank >=
+2, the row means ``vr`` (over the last axis) and column means ``vc`` (over
+axis -2) of g² + eps, and a full ``v`` for the others; in the stacked tree
+a layer leaf is (L, d_in, d_out), so ``vr`` and ``vc`` keep the layers
+axis, and the RMS clip's mean runs over the whole stacked leaf, all its
+layers at once, as the reference's does. Its f32 master is optional
+(``master_fp32``); without it the parameters are updated directly. SGDM
+(momentum 0.9, no weight decay) always keeps an f32 master. The state
+trees are the reference's: ``{"v": {leaf: {"vr", "vc"} | {"v"}},
+"master"?}`` and ``{"mom", "master"}``, so checkpoints cross both ways.
+
 Unlike the reference, which returns new trees, ``update`` works in place:
 the moments, the master copy and the parameters are overwritten, so a
 step holds one set of optimizer state on the card, not two.
-
-Adafactor and SGD-momentum are not ported yet (ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -64,11 +73,16 @@ def _lr(step, cfg: RunConfig, warmup=200, total=10_000) -> torch.Tensor:
 def make_optimizer(cfg: RunConfig) -> Optimizer:
     if cfg.optimizer == "adamw":
         return _adamw(cfg)
-    if cfg.optimizer in ("adafactor", "sgdm"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet: ROADMAP.md §1 item 6"
-        )
+    if cfg.optimizer == "adafactor":
+        return _adafactor(cfg)
+    if cfg.optimizer == "sgdm":
+        return _sgdm(cfg)
     raise ValueError(cfg.optimizer)
+
+
+def _master(values: dict) -> dict:
+    # A copy even for f32 params: the master must not alias them.
+    return {k: v.detach().to(torch.float32, copy=True) for k, v in values.items()}
 
 
 # ------------------------------------------------------------------- AdamW
@@ -82,9 +96,7 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
                   for k, v in values.items()},
         }
         if cfg.master_fp32:
-            # A copy even for f32 params: the master must not alias them.
-            st["master"] = {k: v.detach().to(torch.float32, copy=True)
-                            for k, v in values.items()}
+            st["master"] = _master(values)
         return st
 
     @torch.no_grad()
@@ -108,5 +120,74 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
             if cfg.master_fp32:
                 master.copy_(new)
             p.copy_(new.to(p.dtype))
+
+    return Optimizer(init, update)
+
+
+# --------------------------------------------------------------- Adafactor
+def _adafactor(cfg: RunConfig, decay=0.8, eps=1e-30, clip_thresh=1.0):
+    @torch.no_grad()
+    def init(values: dict) -> dict:
+        def vstate(v):
+            f32 = {"dtype": torch.float32, "device": v.device}
+            if v.ndim >= 2:
+                return {"vr": torch.zeros(v.shape[:-1], **f32),
+                        "vc": torch.zeros(v.shape[:-2] + v.shape[-1:], **f32)}
+            return {"v": torch.zeros(v.shape, **f32)}
+
+        st = {"v": {k: vstate(v) for k, v in values.items()}}
+        if cfg.master_fp32:
+            st["master"] = _master(values)
+        return st
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, values: dict, step) -> None:
+        lr = _lr(step, cfg)
+        beta = 1.0 - (_f32(step) + 1) ** (-decay)
+        for k, g in grads.items():
+            p, vs = values[k], state["v"][k]
+            g = g.float()
+            g2 = g * g + eps
+            if g.ndim >= 2:
+                vr, vc = vs["vr"], vs["vc"]
+                vr.mul_(beta).add_((1 - beta) * g2.mean(dim=-1))
+                vc.mul_(beta).add_((1 - beta) * g2.mean(dim=-2))
+                denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+                vhat = (vr[..., None] / denom[..., None]) * vc[..., None, :]
+                u = g / torch.sqrt(vhat + eps)
+            else:
+                v = vs["v"]
+                v.mul_(beta).add_((1 - beta) * g2)
+                u = g / torch.sqrt(v + eps)
+            # RMS update clipping (Adafactor eq. 7), over the whole leaf.
+            rms = torch.sqrt(torch.mean(u * u) + eps)
+            u = u / torch.clamp(rms / clip_thresh, min=1.0)
+            master = state["master"][k] if cfg.master_fp32 else p.float()
+            if p.ndim >= 2:
+                u = u + cfg.weight_decay * master
+            new = master - lr * u
+            if cfg.master_fp32:
+                master.copy_(new)
+            p.copy_(new.to(p.dtype))
+
+    return Optimizer(init, update)
+
+
+# -------------------------------------------------------------------- SGDM
+def _sgdm(cfg: RunConfig, momentum=0.9):
+    @torch.no_grad()
+    def init(values: dict) -> dict:
+        return {"mom": {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+                        for k, v in values.items()},
+                "master": _master(values)}
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, values: dict, step) -> None:
+        lr = _lr(step, cfg)
+        for k, g in grads.items():
+            m, master = state["mom"][k], state["master"][k]
+            m.mul_(momentum).add_(g.float())
+            master.sub_(lr * m)
+            values[k].copy_(master.to(values[k].dtype))
 
     return Optimizer(init, update)

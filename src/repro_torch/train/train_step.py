@@ -33,9 +33,6 @@ from .losses import lm_loss
 
 __all__ = ["build_decode_step", "build_prefill_step", "build_train_step", "init_train_state"]
 
-_BATCH_KEYS = ("tokens", "targets", "loss_mask")
-
-
 def init_train_state(model: Model, optimizer: Optimizer, seed: int = 0) -> dict:
     """Initialise ``model``'s parameters from ``seed`` and the optimizer
     state over them."""
@@ -68,7 +65,10 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
 
     def grad_fn(params: dict, batch):
         loss, metrics = loss_fn(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        # A leaf the loss never reads (a frame arch's token embedding) gets
+        # a zero gradient, as jax.grad gives it.
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
+                                    materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, dict(zip(params, grads))
 
@@ -77,8 +77,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         if not (k and k > 1):
             return grad_fn(params, batch)
         micro = [
-            {key: batch[key].reshape(k, batch[key].shape[0] // k, *batch[key].shape[1:])[i]
-             for key in _BATCH_KEYS}
+            {key: x.reshape(k, x.shape[0] // k, *x.shape[1:])[i] for key, x in batch.items()}
             for i in range(k)
         ]
         # Accumulate in the param dtype (bf16 for big models) unless a
@@ -127,7 +126,11 @@ def _size_cache(t, s_c: int) -> torch.Tensor:
 def build_prefill_step(model: Model, max_len: int):
     """Full-prompt pass that builds the decode cache (sized to ``max_len``).
 
-    ``prefill(inputs) -> (logits[:, -1:], caches)``. Attention K/V are sized
+    ``prefill(inputs) -> (logits[:, -1:], caches)``; ``inputs`` holds
+    ``tokens`` and, for a ``patch`` frontend, ``patch_embeds``, whose
+    positions come first. As in the reference, a prefill longer than
+    ``max_len`` (patches included) keeps only its last ``max_len``
+    positions, in the rotating layout. Attention K/V are sized
     into decode slots (a shared_attn site's gaining its leading axis 1 and
     int8 applying where configured); a recurrent state is already the
     cache and passes through.

@@ -116,6 +116,66 @@ def test_attention_block(cfg, threshold):
     assert err(gk, wk) <= TOL and err(gv, wv) <= TOL
 
 
+#: ``_chunked_attention_vecq`` cases: (causal, window, GQA). The q/k/v of a
+#: GQA case are drawn at the kv heads and expanded, as ``attention_block``
+#: passes them. With a window the first kv blocks of late rows are fully
+#: masked: vecq zeroes their ``p`` and ``_chunked_attention`` adds
+#: ``exp(NEG_INF - NEG_INF) = 1`` there, which the next block's
+#: ``corr = exp(NEG_INF - m) = 0`` wipes, so both agree with the dense path.
+VECQ_CASES = {"causal": (True, 0, False), "non-causal": (False, 0, False),
+              "window": (True, 20, False), "non-causal-window": (False, 20, False),
+              "gqa-expanded": (True, 0, True)}
+
+
+@pytest.mark.parametrize("case", list(VECQ_CASES))
+def test_chunked_attention_vecq(cfg, case):
+    causal, window, gqa = VECQ_CASES[case]
+    c = dataclasses.replace(cfg, attn_chunk=16, causal=causal, window=window)
+    q, k, v = _qkv(c, s=64)
+    if gqa:
+        rng = np.random.default_rng(7)
+        k, v = (np.repeat(rng.normal(size=(2, 64, c.num_kv_heads, c.head_dim_)).astype(
+            np.float32), c.num_heads // c.num_kv_heads, axis=2) for _ in range(2))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = jattn._chunked_attention_vecq(jq, jk, jv, c)
+    got = attention._chunked_attention_vecq(t(q), t(k), t(v), c)
+    assert got.shape == (2, 64, c.num_heads, c.head_dim_)
+    assert err(got, want) <= TOL
+    # All three attention paths compute one function under every mask here.
+    assert err(got, jattn._chunked_attention(jq, jk, jv, c)) <= TOL
+    assert err(got, jattn._dense_attention(jq, jk, jv, c)) <= TOL
+
+
+def test_chunked_attention_vecq_refuses_a_ragged_sequence(cfg):
+    c = dataclasses.replace(cfg, attn_chunk=16)
+    q, k, v = _qkv(c, s=40)
+    with pytest.raises(ValueError, match="multiple of attn_chunk"):
+        attention._chunked_attention_vecq(t(q), t(k), t(v), c)
+
+
+@pytest.mark.parametrize("shard,threshold,path", [
+    ("seq", 32, "_chunked_attention_vecq"), ("seq", 2048, "_dense_attention"),
+    ("heads", 32, "_chunked_attention")])
+def test_attention_block_dispatches_vecq_for_seq_sharding(cfg, shard, threshold, path,
+                                                         monkeypatch):
+    """``attn_shard="seq"`` above ``attn_dense_threshold`` takes the vecq
+    path, at or below it the dense one; ``"heads"`` above it the chunked
+    one: the reference's dispatch, output within TOL of the reference's."""
+    c = dataclasses.replace(cfg, attn_shard=shard, attn_dense_threshold=threshold,
+                            attn_chunk=16)
+    called = []
+    for name in ("_chunked_attention_vecq", "_dense_attention", "_chunked_attention"):
+        fn = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *a, _fn=fn, _name=name: called.append(_name) or _fn(*a))
+    p0 = {k: v[0] for k, v in _jax_values(c)["segments"][0]["attn"].items()}
+    x = np.random.default_rng(3).normal(size=(2, 64, c.d_model)).astype(np.float32)
+    want, _ = jattn.attention_block(jax.tree.map(jnp.asarray, p0), jnp.asarray(x), c)
+    got, _ = attention.attention_block({k: t(v) for k, v in p0.items()}, t(x), c)
+    assert called == [path]
+    assert err(got, want) <= TOL
+
+
 def test_expand_kv_is_repeat_interleave(cfg):
     k = np.arange(2 * 3 * cfg.num_kv_heads * 4, dtype=np.float32).reshape(
         2, 3, cfg.num_kv_heads, 4)
@@ -207,10 +267,15 @@ def test_bridge_round_trip_is_bit_exact(cfg, dtype):
 
 
 def test_unported_kinds_raise():
+    """Every registered arch builds; the one refusal left is
+    ``moe_impl="a2a"``, which needs a mesh (ROADMAP.md §1 item 8)."""
+    from repro_torch.configs import list_archs
+
+    for arch in list_archs():
+        build_model(reduced(get_config(arch)), device="cpu")
+    cfg = dataclasses.replace(reduced(get_config("deepseek-moe-16b")), moe_impl="a2a")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(get_config("llava-next-34b")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(reduced(get_config("hubert-xlarge")), device="cpu")
+        build_model(cfg, device="cpu")
 
 
 # ------------------------------------------------------------------ hybrid

@@ -157,6 +157,19 @@ def test_prefill_and_decode_match_jax(variant):
     _prefill_and_decode_match_jax(cfg, prompt_len, max_len)
 
 
+def test_softcap_serving_refused():
+    """Neither attention kernel has a softcap, so prefill and decode refuse
+    a config that sets one instead of serving it through plain attention."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    capped = build_model(dataclasses.replace(cfg, logit_softcap=5.0), device="cpu").init(0)
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="logit_softcap"):
+        build_prefill_step(capped, 16)({"tokens": tokens})
+    _, cache = build_prefill_step(build_model(cfg, device="cpu").init(0), 16)({"tokens": tokens})
+    with pytest.raises(NotImplementedError, match="logit_softcap"):
+        build_decode_step(capped)(cache, tokens[:, :1], 8)
+
+
 HYBRID_VARIANTS = {
     # name: (config changes, prompt length, max_len)
     "full": ({}, 16, 32),
@@ -410,8 +423,8 @@ def test_serve_cli(capsys):
     assert port_serve.main(["--list-archs"]) == 0
     assert "hubert-xlarge: encoder-only" in capsys.readouterr().out
     assert port_serve.main(["--arch", "hubert-xlarge"]) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_serve.serve(_args(arch="llava-next-34b", batch=1, new_tokens=2))
+    llava = port_serve.serve(_args(arch="llava-next-34b", batch=1, new_tokens=2))
+    assert llava["tokens"].shape == (1, 2) and llava["pos0"] == 24 + 8  # after the patches
     if not torch.cuda.is_available():  # no card: the default device refuses
         with pytest.raises(SystemExit) as exc:
             port_serve.main(argv)
