@@ -130,7 +130,28 @@ and each of which prints its wall time:
    phi3-medium-14b at full width cut to 2 layers, B=1, S=4096, bf16:
    ``_chunked_attention_vecq`` against ``_chunked_attention`` on the same
    q/k/v (2e-2), and 2 AdamW train steps through the vecq path with finite
-   losses.
+   losses;
+13. the all-to-all MoE: phase 9's run (deepseek-moe-16b full width and
+   depth, bf16, B=8, a 1920-token prompt, 128 new tokens) with
+   ``moe_impl="a2a"``, through the port's prefill and decode steps under a
+   1x1 ("data", "model") mesh on a one-rank NCCL group, its rules installed
+   as the sharding context: the prefill's MoE layers go through
+   ``moe_block_a2a`` (decode routes one token through ``moe_block``, as the
+   reference's does). Checks 28 flash and 28 x 127 decode launches, tokens
+   in range and finite logits; reads each capacity stage's dropped share
+   over a prefill; profiles 16 decode steps and one prefill, beside a
+   prefill of the same weights through ``moe_block``, and prints them
+   beside phase 9's. Then (13b) the a2a against ``moe_block`` on the same
+   weights in f32, B=1, the depth cut to 4 layers at full width (9c runs
+   full depth): ``moe_block`` at capacity factor 11 and the a2a at 3.32,
+   where neither drops (both must count 0 drops), the prefill logits and
+   decode steps 0, 42, 84 and 126 within 1e-3 scale-normalised, argmax
+   equal on every row; and (13c) ``python -m repro_torch.launch.dryrun
+   --arch tinyllama-1.1b --shape train_4k --single-pod-only`` on this host:
+   the full config's train step on DTensors over meta tensors on a 16x16
+   mesh of a fake 512-rank group (no JAX here), which must come back ok;
+   prints FLOPs per device, collective bytes by kind, memory and the
+   H100 roofline row of ``repro_torch.launch.roofline``.
 
 Phase 6 also holds reduced llava-next-34b (serving, with patches),
 hubert-xlarge and phi3-medium-14b (through vecq) to the CPU in f32:
@@ -138,10 +159,11 @@ logits and two Adafactor and two SGDM steps each. Phase 3 also holds
 both attention kernels at G = 7 and G = 4, D = 128, and times them at
 llava's shapes.
 
-The last eleven lines are the training path's numbers as JSON, the serving
+The last twelve lines are the training path's numbers as JSON, the serving
 path's, the hybrid serving path's, the data-service path's, the MoE
 serving path's, the xLSTM serving path's, the VLM serving path's, the
-encoder training path's, the card's name and power limit, the kernel
+encoder training path's, the all-to-all MoE path's (with 13b and 13c),
+the card's name and power limit, the kernel
 table as JSON (five kernels), and ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
 a directory without the port's sources.
 
@@ -160,6 +182,7 @@ import dataclasses
 import itertools
 import json
 import math
+import socket
 import statistics
 import subprocess
 import sys
@@ -288,6 +311,16 @@ ENCODER_SGDM_ARGS = ENCODER_ARGS[:-4] + ["--optimizer", "sgdm", "--steps", "3"]
 VECQ_LAYERS = 2
 VECQ_SEQ = 4096
 VECQ_TOL = 2e-2
+#: Phase 13b's capacity factor for the all-to-all MoE on one rank: cap_pair
+#: = int(1920 * 6 * 3.32) = 38,246 rows covers the 11,520 assignments and
+#: cap_local = int(38,246 * 3.32 / 64) = 1,984 the most one expert can get
+#: (1,920), so nothing drops there, beside moe_block's cap of 1,980 at
+#: NO_DROP_CAPACITY.
+A2A_CAPACITY = 3.32
+#: Phase 13b's depth cut, at full width (9c holds full depth in f32).
+A2A_CHECK_LAYERS = 4
+#: Phase 13c: the dry run's CLI for one cell on the single-pod mesh.
+DRYRUN_ARGS = ["--arch", "tinyllama-1.1b", "--shape", "train_4k", "--single-pod-only"]
 AUTOTUNE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
                  "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
                  "--autotune", "--steps", "3"]
@@ -1560,9 +1593,9 @@ def hybrid_path(argv) -> tuple[dict, dict]:
     return run, summary
 
 
-def where_prefill_time_goes(summary) -> dict:
-    """Profile one prefill of the served model's prompts: ssd_scan's share
-    of device time and its time per launch."""
+def where_prefill_time_goes(summary, kernel: str = "ssd_scan_bf16_kernel") -> dict:
+    """Profile one prefill of the served model's prompts: ``kernel``'s
+    share of device time and its time per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1578,7 +1611,7 @@ def where_prefill_time_goes(summary) -> dict:
         prefill({"tokens": prompts})
         torch.cuda.synchronize()
     print("prefill:")
-    return device_profile(prof, "chip_smoke.prefill", "ssd_scan_bf16_kernel", 1)
+    return device_profile(prof, "chip_smoke.prefill", kernel, 1)
 
 
 # --------------------------------------------------------------- phase 6
@@ -2473,6 +2506,208 @@ def vecq_check(device) -> dict:
             "losses": losses, "max_memory_allocated_gib": peak / 2**30}
 
 
+# -------------------------------------------------------------- phase 13
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL group, a 1x1 ("data", "model") mesh on the card, and
+    its activation rules installed as the sharding context."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.axes import sharding_ctx
+    from repro_torch.parallel.sharding import make_rules
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with sharding_ctx(make_rules(mesh, RunConfig())):
+            yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def a2a_prefill_drops(summary) -> dict:
+    """One more prefill of the served prompts, counting at each
+    ``moe_block_a2a`` call the assignments each capacity stage routed and
+    dropped (``cap_pair``, then ``cap_local``)."""
+    import repro_torch.models.transformer as transformer
+    from repro_torch.train.train_step import build_prefill_step
+
+    model, seen = summary["model"], []
+    block = transformer.moe_block_a2a
+
+    def counting(p, x, cfg):
+        drops = {}
+        out = block(p, x, cfg, drops=drops)
+        seen.append(drops)
+        return out
+
+    with mock.patch.object(transformer, "moe_block_a2a", counting):
+        build_prefill_step(model, summary["max_len"])(
+            {"tokens": summary["prompts"].to(model.device)})
+    out = {"moe_layers": len(seen)}
+    for stage in ("pair", "local"):
+        dropped = sum(d[f"{stage}_dropped"] for d in seen)
+        routed = sum(d[f"{stage}_routed"] for d in seen)
+        out[stage] = {"dropped": dropped, "routed": routed, "dropped_share": dropped / routed}
+    return out
+
+
+def a2a_buffers(cfg, batch: int, seq: int) -> dict:
+    """``moe_block_a2a``'s capacities on one rank and the bytes of its
+    send and expert buffers, in the compute dtype."""
+    from repro_torch.models.moe import a2a_capacities
+
+    cap_pair, cap_local = a2a_capacities(cfg, batch, seq, 1, 1)
+    size = 2 if cfg.compute_dtype == "bfloat16" else 4
+    return {"cap_pair": cap_pair, "cap_local": cap_local,
+            "send_bytes": cap_pair * cfg.d_model * size,
+            "expert_buffer_bytes": cfg.moe_num_experts * cap_local * cfg.d_model * size}
+
+
+def a2a_path(argv, moe_run: dict) -> tuple[dict, dict]:
+    """Phase 9's serving run with ``moe_impl="a2a"`` under a one-rank mesh
+    (:func:`attention_serve_path`'s checks), each stage's drop share, and
+    decode and prefill profiles beside phase 9's numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser
+
+    args = build_parser().parse_args(argv)
+    cfg = dataclasses.replace(get_config(args.arch), moe_impl="a2a")
+    buffers = a2a_buffers(cfg, args.batch, args.prompt_len)
+    print(f"one rank, capacity factor {cfg.capacity_factor}: cap_pair {buffers['cap_pair']:,d} "
+          f"rows, a send buffer of {buffers['send_bytes'] / 1e9:.3f} GB; cap_local "
+          f"{buffers['cap_local']:,d}, an expert buffer of "
+          f"{buffers['expert_buffer_bytes'] / 1e9:.3f} GB")
+    with one_rank_mesh(), patched_config(cfg):
+        run, summary = attention_serve_path(argv)
+        drops = a2a_prefill_drops(summary)
+        if drops["moe_layers"] != cfg.num_layers - cfg.moe_first_dense:
+            fail(f"the a2a prefill ran {drops['moe_layers']} MoE layers")
+        print(f"capacity drops over {drops['moe_layers']} MoE layers: per pair "
+              f"{drops['pair']['dropped']:,d} of {drops['pair']['routed']:,d} "
+              f"({drops['pair']['dropped_share']:.4%}), per local expert "
+              f"{drops['local']['dropped']:,d} of {drops['local']['routed']:,d} "
+              f"({drops['local']['dropped_share']:.4%})")
+        run.update(buffers=buffers, drops=drops)
+        run["decode_profile"] = where_decode_time_goes(summary)
+        print("prefill through moe_block_a2a:")
+        run["prefill_profile"] = where_prefill_time_goes(summary, "flash_attention")
+        summary["model"].cfg = dataclasses.replace(cfg, moe_impl="gspmd")
+        print("prefill of the same weights through moe_block:")
+        run["gspmd_prefill_profile"] = where_prefill_time_goes(summary, "flash_attention")
+        summary["model"].cfg = cfg
+    steps = run["decode_profile"]["steps"] - 2
+    nine = moe_run["decode_profile"]
+    print(f"beside phase 9 (moe_block): prefill {run['prefill_s']:.4f} s vs "
+          f"{moe_run['prefill_s']:.4f} s; steady decode {run['steady_decode_tok_s']:.1f} vs "
+          f"{moe_run['steady_decode_tok_s']:.1f} tok/s; decode device busy "
+          f"{run['decode_profile']['busy_ms'] / steps:.3f} vs {nine['busy_ms'] / steps:.3f} "
+          f"ms a step; prefill device busy {run['prefill_profile']['busy_ms']:.2f} ms (a2a) vs "
+          f"{run['gspmd_prefill_profile']['busy_ms']:.2f} ms (moe_block, same weights)")
+    run["phase9"] = {"prefill_s": moe_run["prefill_s"],
+                     "steady_decode_tok_s": moe_run["steady_decode_tok_s"],
+                     "decode_busy_ms_per_step": nine["busy_ms"] / steps}
+    run["decode_busy_ms_per_step"] = run["decode_profile"]["busy_ms"] / steps
+    torch.cuda.empty_cache()
+    return run, summary
+
+
+def _scaled_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def a2a_agreement(argv) -> dict:
+    """``moe_block_a2a`` against ``moe_block`` on the same weights, f32,
+    at capacities where neither drops (both must count 0), depth cut to
+    A2A_CHECK_LAYERS at full width: the prefill logits and decode steps
+    AGREEMENT_STEPS within F32_AGREEMENT_TOL, argmax equal on every row."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_parser, serve
+
+    args = build_parser().parse_args(argv)
+    base = dataclasses.replace(get_config(args.arch), num_layers=A2A_CHECK_LAYERS,
+                               param_dtype="float32", compute_dtype="float32")
+    gspmd = dataclasses.replace(base, capacity_factor=NO_DROP_CAPACITY)
+    a2a = dataclasses.replace(base, capacity_factor=A2A_CAPACITY, moe_impl="a2a")
+    with patched_config(gspmd):
+        ref = serve(args, keep_logits=AGREEMENT_STEPS)
+    ref_drops = moe_prefill_drops(ref)
+    ref = {k: ref[k] for k in ("prefill_logits", "logits", "tokens")}
+    torch.cuda.empty_cache()
+    with one_rank_mesh(), patched_config(a2a):
+        got = serve(args, keep_logits=AGREEMENT_STEPS)
+        drops = a2a_prefill_drops(got)
+    print(f"drops: moe_block at capacity factor {NO_DROP_CAPACITY} {ref_drops['dropped']} of "
+          f"{ref_drops['routed']:,d}; a2a at {A2A_CAPACITY} {drops['pair']['dropped']} of "
+          f"{drops['pair']['routed']:,d} per pair, {drops['local']['dropped']} of "
+          f"{drops['local']['routed']:,d} per local expert "
+          f"({a2a_buffers(a2a, args.batch, args.prompt_len)})")
+    if ref_drops["dropped"] or drops["pair"]["dropped"] or drops["local"]["dropped"]:
+        fail("a capacity dropped an assignment where none may drop")
+    rows = []
+    pairs = [("prefill", got["prefill_logits"], ref["prefill_logits"])] + [
+        (t, got["logits"][t], ref["logits"][t]) for t in AGREEMENT_STEPS]
+    for step, a, b in pairs:
+        row = {"step": step, "err": _scaled_err(a, b),
+               "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum()), "rows": a.shape[0]}
+        rows.append(row)
+        print(f"a2a vs moe_block, f32, {A2A_CHECK_LAYERS} layers: {step}: scale-normalised err "
+              f"{row['err']:.3e} (tolerance {F32_AGREEMENT_TOL}), argmax agrees on "
+              f"{row['argmax_agree']}/{row['rows']} rows")
+        if not (row["err"] <= F32_AGREEMENT_TOL and row["argmax_agree"] == row["rows"]):
+            fail(f"the a2a MoE disagrees with moe_block at {step}")
+    if not torch.equal(got["tokens"], ref["tokens"]):
+        fail("the a2a and moe_block runs decoded different tokens")
+    del got
+    torch.cuda.empty_cache()
+    return {"layers": A2A_CHECK_LAYERS, "dtype": "float32", "batch": args.batch,
+            "capacity_factor": {"moe_block": NO_DROP_CAPACITY, "a2a": A2A_CAPACITY},
+            "drops": {"moe_block": ref_drops["dropped"], "a2a": drops}, "agreement": rows}
+
+
+def dryrun_cell() -> dict:
+    """``python -m repro_torch.launch.dryrun`` for one cell on this host (a
+    fake 512-rank group, meta tensors, no card): it must come back ok;
+    prints its FLOPs, collective bytes by kind, memory and roofline row."""
+    import os
+
+    from repro_torch.launch import roofline
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as work:
+        out = Path(work) / "dryrun.jsonl"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+                               "--out", str(out)], capture_output=True, text=True, env=env,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        print(proc.stdout.strip())
+        if proc.returncode != 0 or not out.exists():
+            fail(f"the dry run exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows = roofline.load_rows(out)
+    (row,) = rows
+    if row["status"] != "ok":
+        fail(f"the dry-run cell is {row['status']}: {row['error']}")
+    (an,) = roofline.analyze(rows)
+    print(f"dry run {row['arch']} x {row['shape']} on {row['mesh']}: {wall:.1f} s wall "
+          f"({'more' if wall > 120 else 'less'} than 120 s); flops/device "
+          f"{row['flops_per_device']:.4e}, bytes/device {row['bytes_per_device']:.4e}, "
+          f"collectives {row['collectives']}, memory {row['memory']}")
+    print(roofline.to_markdown([an]))
+    return {"wall_s": wall, "cell": row, "roofline": an}
+
+
 def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
@@ -2667,13 +2902,28 @@ def main(argv=None) -> int:
           f"B=1, S={VECQ_SEQ}, bf16")
     enc_run["vecq"] = vecq_check(device)
     torch.cuda.empty_cache()
+
+    # ----------------------------------------- 13. the all-to-all MoE path
+    phase("13. all-to-all MoE serving path: deepseek-moe-16b moe_impl=a2a under a 1x1 mesh, "
+          + " ".join(MOE_ARGS))
+    a2a_run, summary = a2a_path(MOE_ARGS, moe_run)
+    del summary
+    torch.cuda.empty_cache()
+
+    phase(f"13b. moe_block_a2a vs moe_block, f32, {A2A_CHECK_LAYERS} layers at full width, "
+          f"capacity factors {A2A_CAPACITY} and {NO_DROP_CAPACITY}: " + " ".join(MOE_CHECK_ARGS))
+    a2a_run["check"] = a2a_agreement(MOE_CHECK_ARGS)
+
+    phase("13c. dry run: python -m repro_torch.launch.dryrun " + " ".join(DRYRUN_ARGS))
+    a2a_run["dryrun"] = dryrun_cell()
     phase(None)
 
-    # Launches in the main paths' runs: flash and decode run in the four
+    # Launches in the main paths' runs: flash and decode run in the five
     # attention serving paths, ssd_scan in the hybrid's; the raw gather is
     # on no path, and the xLSTM path launches no kernel.
     by_path = {"serve_path": serve_run["launches"], "hybrid_path": hybrid_run["launches"],
-               "moe_path": moe_run["launches"], "vlm_path": vlm_run["launches"]}
+               "moe_path": moe_run["launches"], "vlm_path": vlm_run["launches"],
+               "moe_a2a_path": a2a_run["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         counts = {path: launches[name] for path, launches in by_path.items() if name in launches}
         kernels[name]["launches"] = sum(counts.values())
@@ -2698,6 +2948,7 @@ def main(argv=None) -> int:
     print(json.dumps({"xlstm_path": xlstm_run}))
     print(json.dumps({"vlm_path": vlm_run}))
     print(json.dumps({"encoder_path": enc_run}))
+    print(json.dumps({"moe_a2a_path": a2a_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

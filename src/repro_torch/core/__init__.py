@@ -72,7 +72,7 @@ __all__ = [
 
 def __getattr__(name):
     # DeviceStager lives behind a lazy import: core itself is numpy-only,
-    # and the transport's subprocess trainers must not pay the torch import
+    # and the transport's subprocess trainers must not pay the jax import
     # unless they actually take the device path.
     if name in ("DeviceStager", "HostPack", "pack_records"):
         from . import device

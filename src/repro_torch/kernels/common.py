@@ -5,6 +5,8 @@ picks compiled Pallas on a TPU and the interpreter elsewhere. Here the
 choice is the device. ``resolve_device()`` defaults to the CUDA card and
 refuses anything but a Hopper (capability 9.0) card; the CPU is taken only
 when the caller asks for it, and then the kernels' plain versions run.
+The meta device (the dry run: shapes and dtypes, no data) is taken on
+request as well.
 """
 
 from __future__ import annotations
@@ -31,14 +33,15 @@ def resolve_device(device=None) -> torch.device:
     """Resolve a device request to a concrete ``torch.device``.
 
     ``None`` -> the current CUDA card. ``"cpu"`` -> the CPU (tests, and
-    the plain kernel versions). A CUDA request raises if there is no card
-    or the card is not capability (9, 0); it never falls back to the CPU.
+    the plain kernel versions); ``"meta"`` -> the meta device (the dry
+    run). A CUDA request raises if there is no card or the card is not
+    capability (9, 0); it never falls back to the CPU.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or 'meta'")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "

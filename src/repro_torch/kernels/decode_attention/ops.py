@@ -107,7 +107,7 @@ def decode_attention(q, cache_k, cache_v, mask):
     """
     _check(q, cache_k, cache_v, mask)
     device = q.device
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):  # meta: the dry run's shapes, no data
         return decode_attention_plain(q, cache_k, cache_v, mask)
     resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
     b, h, d = q.shape

@@ -34,7 +34,8 @@ the last ``prompt_len + new_tokens`` positions, not the patches.
 
 ``--list-archs`` prints every registered arch with its serving capability
 and exits 0; asking to serve an encoder-only arch (hubert-xlarge) exits 1.
-``moe_impl="a2a"`` raises ``NotImplementedError`` naming its ROADMAP item.
+Like the reference's, this launcher installs no mesh, so a config with
+``moe_impl="a2a"`` serves only under a caller's ``sharding_ctx``.
 ``--seed`` makes the random prompts and weights reproducible. :func:`serve` is the same run as a function, for callers
 that check its output.
 """

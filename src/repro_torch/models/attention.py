@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention_gqa
+from ..parallel.axes import per_shard, shard
 from .common import apply_rope, make_rope, scaled_init
 
 __all__ = [
@@ -149,7 +150,7 @@ def _chunked_attention_vecq(q, k, v, cfg):
         raise ValueError(f"seq {s} is not a multiple of attn_chunk {blk}")
     nq = s // blk
     scale = d**-0.5
-    qb = q.reshape(b, nq, blk, h, d)
+    qb = shard(q.reshape(b, nq, blk, h, d), "batch", "seq_tp", None, None, None)
     kb = k.reshape(b, nq, blk, h, d)
     vb = v.reshape(b, nq, blk, h, d)
     qpos = (torch.arange(nq, device=q.device)[:, None, None] * blk
@@ -157,6 +158,7 @@ def _chunked_attention_vecq(q, k, v, cfg):
     m = torch.full((b, nq, h, blk), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, nq, h, blk), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, nq, h, blk, d), dtype=torch.float32, device=q.device)
+    m, l, acc = (shard(t, "batch", "seq_tp", *([None] * (t.ndim - 2))) for t in (m, l, acc))
     for ki in range(nq):
         kk = kb[:, ki]  # (b, blk, h, d)
         vv = vb[:, ki]
@@ -177,6 +179,23 @@ def _chunked_attention_vecq(q, k, v, cfg):
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.permute(0, 1, 3, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def _qkv_axes(cfg):
+    if cfg.attn_shard == "seq":
+        # heads not divisible by tp: shard sequence instead
+        return ("batch", "seq_tp", "heads_r", None)
+    return ("batch", None, "heads", None)
+
+
+def _per_shard(fn, q, k, v, cfg):
+    """``fn(q, k, v, cfg)`` on each device's own (batch, head) block when
+    q, k and v are DTensors split over those dims only (the dry run):
+    attention is independent per (batch, head). Otherwise (plain tensors,
+    or a sequence split) ``fn`` runs as it is."""
+    same = {0: 0, 2: 2}
+    return per_shard(lambda q_, k_, v_: fn(q_, k_, v_, cfg), q, (0, 2),
+                     [(q, same), (k, same), (v, same)], [same])
 
 
 def _no_softcap(cfg) -> None:
@@ -208,12 +227,15 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
         return out, kv
     k = _expand_kv(k, cfg)
     v = _expand_kv(v, cfg)
+    axes = _qkv_axes(cfg)
+    q, k, v = shard(q, *axes), shard(k, *axes), shard(v, *axes)
     if s <= cfg.attn_dense_threshold:
-        out = _dense_attention(q, k, v, cfg)
+        out = _per_shard(_dense_attention, q, k, v, cfg)
     elif cfg.attn_shard == "seq":
-        out = _chunked_attention_vecq(q, k, v, cfg)
+        out = _per_shard(_chunked_attention_vecq, q, k, v, cfg)
     else:
-        out = _chunked_attention(q, k, v, cfg)
+        out = _per_shard(_chunked_attention, q, k, v, cfg)
+    out = shard(out, *axes)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
     return out, kv
 

@@ -25,10 +25,13 @@ __all__ = [
 ]
 
 
-def flatten_tree(tree, prefix: str = "") -> dict:
+def flatten_tree(tree, prefix: str = "", is_leaf=None) -> dict:
     """Nested dict/list tree -> {"a/b/0/c": leaf} in the reference's leaf
-    order (dict keys sorted, lists in index order, as ``jax.tree`` does)."""
+    order (dict keys sorted, lists in index order, as ``jax.tree`` does).
+    ``is_leaf(node)`` true stops the descent there (an axes tuple)."""
     out: dict = {}
+    if is_leaf is not None and is_leaf(tree):
+        return {prefix: tree}
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
     elif isinstance(tree, (list, tuple)):
@@ -36,7 +39,7 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     else:
         return {prefix: tree}
     for k, v in items:
-        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k))
+        out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k, is_leaf))
     return out
 
 

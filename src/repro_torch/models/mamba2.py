@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan.ops import ssd_scan_heads
+from ..parallel.axes import per_shard, shard
 from .common import normal_init, scaled_init
 
 __all__ = ["init_mamba2", "mamba2_block", "mamba2_decode", "mamba2_state_shape"]
@@ -143,6 +144,7 @@ def mamba2_block(p_, x, cfg, *, init_state=None, chunk=None, want_cache=False):
     dt = F.softplus(dt.float() + p_["dt_bias"].float())
     A = -torch.exp(p_["A_log"].float())
     xh = xin.reshape(b, s, heads, ph)
+    xh = shard(xh, "batch", None, "inner_heads", None)
     ssm_init = None if init_state is None else init_state["ssm"]
     chunk = min(chunk, s)
     if want_cache:
@@ -153,7 +155,13 @@ def mamba2_block(p_, x, cfg, *, init_state=None, chunk=None, want_cache=False):
         y, final = ssd_scan_heads(xh, dt, A, B, C,
                                   None if ssm_init is None else ssm_init.float().contiguous())
     else:
-        y, final = _ssd_chunked(xh.float(), dt, A, B.float(), C.float(), chunk, ssm_init)
+        # independent per (batch, head): each device scans its own block
+        # under a sharding (B and C are shared by the heads)
+        bh, b_, h_ = {0: 0, 2: 2}, {0: 0}, {2: 0}
+        y, final = per_shard(
+            lambda *t: _ssd_chunked(*t[:5], chunk, t[5]), xh, (0, 2),
+            [(xh.float(), bh), (dt, bh), (A, h_), (B.float(), b_), (C.float(), b_),
+             (ssm_init, {0: 0, 2: 1})], [bh, {0: 0, 2: 1}])
     y = y + xh.float() * p_["D"].float()[None, None, :, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = y * F.silu(z)

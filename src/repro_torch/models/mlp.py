@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..parallel.axes import shard
 from .common import scaled_init
 
 __all__ = ["init_mlp", "mlp_block"]
@@ -22,4 +23,5 @@ def init_mlp(gen, cfg, dtype, d_ff=None) -> dict:
 def mlp_block(p, x):
     h = F.silu(x @ p["wi_gate"])
     h = h * (x @ p["wi_up"])
+    h = shard(h, "batch", None, "mlp")
     return h @ p["wo"]

@@ -46,7 +46,19 @@ decoder. ``patch`` (llava) puts ``patch_embeds @ frontend`` before the
 embedded tokens; ``frame`` (hubert) feeds ``frames @ frontend`` in place of
 them, so the token embedding is never read (its gradient is zero, and the
 optimizers still decay it, as the reference's do). ``decode_step`` embeds
-tokens only. ``moe_impl="a2a"`` is not ported and raises.
+tokens only.
+
+Sharding: ``param_axes`` / ``cache_axes`` give every parameter and cache
+leaf its logical axes (the reference's ``Param`` axes, keyed by tree
+path), and the reference's ``shard()`` sites constrain activations when a
+``sharding_ctx`` is installed and the model runs on DTensors (the dry
+run); otherwise they are the identity. The port adds two sites, each
+sublayer's output (``_residual``) and decode's embedding, and computes
+attention and the SSD scan per (batch, head) block (``per_shard``):
+DTensor propagates op by op, GSPMD over the whole program. With
+``moe_impl="a2a"`` an
+``attn_moe`` layer's full-sequence pass goes through ``moe_block_a2a``,
+which needs a context whose mesh has a "model" axis.
 """
 
 from __future__ import annotations
@@ -58,11 +70,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
+from ..parallel.axes import shard
 from .attention import attention_block, decode_attention_block, init_attention
 from .common import flatten_tree, normal_init, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
-from .moe import init_moe, moe_block
+from .moe import init_moe, moe_block, moe_block_a2a
 from .xlstm import (
     _mlstm_dims,
     _slstm_dims,
@@ -138,6 +151,43 @@ def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
     raise ValueError(kind)
 
 
+def _block_axes(kind: str, cfg: ModelConfig) -> dict:
+    """One layer's logical axes, the tree of :func:`_block_shapes` (the
+    reference's ``Param`` axes)."""
+    if kind in ATTN_KINDS:
+        tree = {"ln1": ("embed",), "ln2": ("embed",),
+                "attn": {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+                         "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}}
+        mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+        if kind == "attn_moe":
+            tree["moe"] = {"router": ("embed", None), "wi_gate": ("experts", "embed", None),
+                           "wi_up": ("experts", "embed", None),
+                           "wo": ("experts", None, "embed")}
+            if cfg.moe_num_shared:
+                tree["moe"]["shared"] = mlp
+        else:
+            tree["mlp"] = mlp
+        return tree
+    if kind == "mamba2":
+        return {"ln": ("embed",), "mixer": {
+            "in_proj": ("embed", "inner_flat"), "conv_w": (None, "inner_flat"),
+            "conv_b": ("inner_flat",), "A_log": ("heads",), "dt_bias": ("heads",),
+            "D": ("heads",), "out_proj": ("inner_flat", "embed")}}
+    if kind == "mlstm":
+        flat = ("inner_flat", "inner_flat")
+        return {"ln": ("embed",), "cell": {
+            "w_up": ("embed", "inner_flat"), "wq": flat, "wk": flat, "wv": flat,
+            "w_i": ("inner_flat", None), "w_f": ("inner_flat", None), "b_f": (None,),
+            "out_norm": ("inner_flat",), "w_down": ("inner_flat", "embed")}}
+    if kind == "slstm":
+        cell = {"out_norm": ("embed",), "w_out": ("embed", "embed2")}
+        for g in ("z", "i", "f", "o"):
+            cell.update({f"w_{g}": ("embed", "embed2"), f"r_{g}": ("inner_heads", None, None),
+                         f"b_{g}": ("embed",)})
+        return {"ln": ("embed",), "cell": cell}
+    raise ValueError(kind)
+
+
 def _init_block(kind: str, gen, cfg: ModelConfig, dtype) -> dict:
     """One layer's parameters, drawn in the reference's order."""
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
@@ -161,17 +211,27 @@ def _block(kind, p, x, cfg, want_cache=False):
     if kind in ATTN_KINDS:
         h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
                                     want_cache=want_cache)
-        x = x + h
+        x = x + _residual(h)
         hn = rms_norm(x, p["ln2"], eps)
         if kind == "attn_moe":
-            h, aux = moe_block(p["moe"], hn, cfg)
+            moe_fn = moe_block_a2a if cfg.moe_impl == "a2a" else moe_block
+            h, aux = moe_fn(p["moe"], hn, cfg)
         else:
             h, aux = mlp_block(p["mlp"], hn), None
-        return x + h, {"k": k, "v": v}, aux
+        return x + _residual(h), {"k": k, "v": v}, aux
     fn, _, key = _RECURRENT[kind]
     kw = {"want_cache": want_cache} if kind == "mamba2" else {}
     h, st = fn(p[key], rms_norm(x, p["ln"], eps), cfg, **kw)
-    return x + h, st, None
+    return x + _residual(h), st, None
+
+
+def _residual(h):
+    """A sublayer's output as the residual stream is sharded (a port-only
+    site). On DTensors the row-split output projection leaves a partial
+    sum, which DTensor, propagating op by op, would carry into the next
+    norm and matmul (gathering that matmul's weights) where GSPMD reduces
+    it: the Megatron all-reduce (reduce-scatter with ``seq_parallel``)."""
+    return shard(h, "batch", "seq_act", "embed_act")
 
 
 def _train_block(kind, p, x, cfg):
@@ -217,6 +277,24 @@ def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
         return {"k": (shp, torch.int8), "k_scale": (sshp, torch.bfloat16),
                 "v": (shp, torch.int8), "v_scale": (sshp, torch.bfloat16)}
     return {"k": (shp, cdt), "v": (shp, cdt)}
+
+
+def _cache_leaf_axes(kind, cfg) -> dict:
+    """{leaf: logical axes} of one block's decode cache entry (the
+    reference's ``_cache_shapes`` axes), the tree of :func:`_cache_shapes`."""
+    if kind == "mamba2":
+        return {"ssm": ("batch", "inner_heads", None, None), "conv": ("batch", None, "inner_flat")}
+    if kind == "mlstm":
+        return {"C": ("batch", "inner_heads", None, None), "n": ("batch", "inner_heads", None)}
+    if kind == "slstm":
+        return {name: ("batch", "embed_state") for name in slstm_state_shape(cfg, 1)}
+    ax = ("batch", None, "kv_heads", None)
+    names = ("k", "k_scale", "v", "v_scale") if cfg.kv_cache_dtype == "int8" else ("k", "v")
+    return {name: ax for name in names}
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
 
 
 def _unflatten(flat: dict) -> dict:
@@ -292,12 +370,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         kinds = [kind for kind, _ in cfg.segments()]
-        if cfg.moe_impl == "a2a" and "attn_moe" in kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: moe_impl='a2a' (moe_block_a2a) needs a mesh with a "
-                "'model' axis, which one card does not have: ROADMAP.md §1 item 8 "
-                "(launch tooling)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = _dtype(cfg.param_dtype)
@@ -361,6 +433,27 @@ class Model(nn.Module):
             out["shared_attn"] = self.shared_attn.values()
         return out
 
+    def param_axes(self) -> dict:
+        """{path: logical axes} of every parameter, keyed like
+        ``flatten_tree(self.values())`` (the reference's tree paths), each
+        stacked leaf with a leading "layers" axis."""
+        cfg = self.cfg
+        out = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+        if not cfg.tie_embeddings:
+            out["lm_head"] = ("embed", "vocab")
+        if cfg.frontend != "none":
+            out["frontend"] = (None, "embed")
+        for i, (kind, count) in enumerate(cfg.segments()):
+            if kind == "shared_attn":
+                continue
+            for path, ax in flatten_tree(_block_axes(kind, cfg), "", is_leaf=_is_axes).items():
+                out[f"segments/{i}/{path}"] = ("layers", *ax)
+        if self.shared_attn is not None:
+            for path, ax in flatten_tree(_block_axes("shared_attn", cfg), "",
+                                         is_leaf=_is_axes).items():
+                out[f"shared_attn/{path}"] = ax
+        return out
+
     # ---------------------------------------------------------- forward
     def _embed_tokens(self, tokens):
         return F.embedding(tokens, self.embed).to(_dtype(self.cfg.compute_dtype))
@@ -371,17 +464,18 @@ class Model(nn.Module):
         frontend = self.cfg.frontend
         if frontend == "frame":
             cdt = _dtype(self.cfg.compute_dtype)
-            return inputs["frames"].to(cdt) @ self.frontend.to(cdt)
+            return shard(inputs["frames"].to(cdt) @ self.frontend.to(cdt),
+                         "batch", None, "embed_act")
         x = self._embed_tokens(inputs["tokens"])
         if frontend == "patch":
             pe = inputs["patch_embeds"].to(x.dtype) @ self.frontend.to(x.dtype)
             x = torch.cat([pe, x], dim=1)
-        return x
+        return shard(x, "batch", None, "embed_act")
 
     def _logits(self, x):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ head.to(x.dtype)
+        return shard(x @ head.to(x.dtype), "batch", None, "vocab")
 
     def forward(self, inputs: dict, *, remat: str = "none", want_cache: bool = False):
         """Full-sequence pass over ``inputs["tokens"]`` (B, S) int, after
@@ -419,6 +513,10 @@ class Model(nn.Module):
                 else:
                     x, entry, aux = _block(kind, lp, x, cfg, want_cache)
                     entries.append(entry)
+                # Megatron-SP: with run_cfg.seq_parallel the "seq_act" rule
+                # maps to "model" and the residual stream lives sequence-
+                # sharded between blocks.
+                x = shard(x, "batch", "seq_act", "embed_act")
                 if aux is not None:
                     aux_total = aux_total + aux
             if want_cache:
@@ -441,6 +539,24 @@ class Model(nn.Module):
             out.append({name: ((lead, *shape), dt) for name, (shape, dt) in shapes.items()})
         return out
 
+    def cache_axes(self, batch: int, max_len: int, tp: int | None = None) -> list[dict]:
+        """Logical axes of every cache leaf, the structure of ``cache_specs``
+        (each with the leading "layers" axis).
+
+        When the KV-head count does not divide the tensor-parallel degree
+        (starcoder2/tinyllama: kv=4 vs tp=16), KV caches shard on the
+        *sequence* dim instead ("kv_seq" -> model), flash-decoding-style
+        split-K, as the reference's.
+        """
+        split_k = tp is not None and self.cfg.num_kv_heads % tp != 0
+        out = []
+        for kind, _ in self.cfg.segments():
+            axes = _cache_leaf_axes(kind, self.cfg)
+            if split_k and kind in ATTN_KINDS:
+                axes = {name: ("batch", "kv_seq", None, None) for name in axes}
+            out.append({name: ("layers", *ax) for name, ax in axes.items()})
+        return out
+
     def init_cache(self, batch: int, max_len: int, dtype=None) -> list[dict]:
         """Zero decode cache on the model's device (mirrors the segments)."""
         return [
@@ -454,7 +570,8 @@ class Model(nn.Module):
         the absolute position of that token. Updates ``caches`` in place
         and returns ``(logits (B, 1, V), caches)``."""
         cfg = self.cfg
-        x = self._embed_tokens(tokens)
+        # a port-only site, as forward's: a vocab-sharded lookup resolved here
+        x = shard(self._embed_tokens(tokens), "batch", None, "embed_act")
         for (kind, _), seg, cache in zip(cfg.segments(), self.segments, caches):
             if kind == "shared_attn":
                 x = _decode_block(kind, self.shared_attn.values(), x,

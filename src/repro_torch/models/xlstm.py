@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.axes import shard
 from .common import rms_norm, scaled_init
 
 __all__ = [
@@ -134,6 +135,7 @@ def mlstm_block(p, x, cfg, *, init_state=None, chunk=256):
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the mLSTM chunk {chunk}")
     q, k, v, ig, lf, z = _mlstm_qkvif(p, x, cfg)
+    q = shard(q, "batch", None, None, "inner_heads")
     y, state = _mlstm_chunked(q.float(), k.float(), v.float(), ig, lf, chunk, init_state)
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)

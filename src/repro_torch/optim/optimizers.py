@@ -23,6 +23,11 @@ trees are the reference's: ``{"v": {leaf: {"vr", "vc"} | {"v"}},
 Unlike the reference, which returns new trees, ``update`` works in place:
 the moments, the master copy and the parameters are overwritten, so a
 step holds one set of optimizer state on the card, not two.
+
+``state_axes(values_axes)`` maps the parameters' ``{path: logical axes}``
+(``Model.param_axes()``) to the logical axes of every state leaf, the
+structure ``init`` builds, as the reference's does (Adafactor's ``vr``
+drops the last axis, ``vc`` the one before it).
 """
 
 from __future__ import annotations
@@ -53,8 +58,9 @@ def clip_by_global_norm(tree: dict, max_norm: float):
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: callable     # values -> opt_state
-    update: callable   # (grads, opt_state, values, step) -> None (in place)
+    init: callable        # values -> opt_state
+    update: callable      # (grads, opt_state, values, step) -> None (in place)
+    state_axes: callable  # values_axes -> opt_state's logical axes
 
 
 def _f32(x) -> torch.Tensor:
@@ -121,7 +127,13 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
                 master.copy_(new)
             p.copy_(new.to(p.dtype))
 
-    return Optimizer(init, update)
+    def state_axes(values_axes: dict) -> dict:
+        st = {"m": values_axes, "v": values_axes}
+        if cfg.master_fp32:
+            st["master"] = values_axes
+        return st
+
+    return Optimizer(init, update, state_axes)
 
 
 # --------------------------------------------------------------- Adafactor
@@ -170,7 +182,18 @@ def _adafactor(cfg: RunConfig, decay=0.8, eps=1e-30, clip_thresh=1.0):
                 master.copy_(new)
             p.copy_(new.to(p.dtype))
 
-    return Optimizer(init, update)
+    def state_axes(values_axes: dict) -> dict:
+        def vaxes(a):
+            if len(a) >= 2:
+                return {"vr": a[:-1], "vc": a[:-2] + a[-1:]}
+            return {"v": a}
+
+        st = {"v": {k: vaxes(a) for k, a in values_axes.items()}}
+        if cfg.master_fp32:
+            st["master"] = values_axes
+        return st
+
+    return Optimizer(init, update, state_axes)
 
 
 # -------------------------------------------------------------------- SGDM
@@ -190,4 +213,7 @@ def _sgdm(cfg: RunConfig, momentum=0.9):
             master.sub_(lr * m)
             values[k].copy_(master.to(values[k].dtype))
 
-    return Optimizer(init, update)
+    def state_axes(values_axes: dict) -> dict:
+        return {"mom": values_axes, "master": values_axes}
+
+    return Optimizer(init, update, state_axes)

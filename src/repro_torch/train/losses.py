@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.axes import shard
+
 __all__ = ["lm_loss"]
 
 
@@ -15,7 +17,10 @@ def lm_loss(logits, targets, loss_mask, *, aux=0.0, aux_weight=0.0, z_weight=1e-
     """
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, targets.long()[..., None])
+    # On a vocab-sharded DTensor the gather leaves a masked partial sum,
+    # which DTensor cannot carry through the select below: resolve it here.
+    gold = shard(gold, "batch", None, None)[..., 0]
     nll = logz - gold
     denom = torch.clamp(loss_mask.sum(), min=1.0)
     ce = (nll * loss_mask).sum() / denom

@@ -85,8 +85,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         acc_dt = (getattr(torch, run_cfg.grad_allreduce_dtype)
                   if run_cfg.grad_allreduce_dtype else None)
         loss = torch.zeros((), dtype=torch.float32)
-        grads = {p: torch.zeros(v.shape, dtype=acc_dt or v.dtype, device=v.device)
-                 for p, v in params.items()}
+        grads = {p: torch.zeros_like(v, dtype=acc_dt or v.dtype) for p, v in params.items()}
         for mb in micro:
             l, metrics, g = grad_fn(params, mb)
             loss = loss + l

@@ -267,15 +267,16 @@ def test_bridge_round_trip_is_bit_exact(cfg, dtype):
 
 
 def test_unported_kinds_raise():
-    """Every registered arch builds; the one refusal left is
-    ``moe_impl="a2a"``, which needs a mesh (ROADMAP.md §1 item 8)."""
+    """Every registered arch builds, with ``moe_impl="a2a"`` too; that
+    one's forward raises without a mesh whose "model" axis it needs."""
     from repro_torch.configs import list_archs
 
     for arch in list_archs():
         build_model(reduced(get_config(arch)), device="cpu")
     cfg = dataclasses.replace(reduced(get_config("deepseek-moe-16b")), moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu").init(0)
+    with pytest.raises(RuntimeError, match="sharding ctx"):
+        model({"tokens": torch.zeros((1, 8), dtype=torch.int32)})
 
 
 # ------------------------------------------------------------------ hybrid

@@ -146,6 +146,10 @@ def test_init_moe_tree_matches_jax(shared):
 
 
 def test_a2a_is_refused():
+    """A model with ``moe_impl="a2a"`` builds, and its forward is refused
+    without a sharding context whose mesh has a "model" axis, as the
+    reference asserts (``tests/test_torch_moe_a2a.py`` runs it on one)."""
     cfg = dataclasses.replace(_cfg(True), moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu").init(0)
+    with pytest.raises(RuntimeError, match="'model' axis"):
+        model({"tokens": torch.zeros((1, 8), dtype=torch.int32)})
