@@ -21,6 +21,13 @@ and each of which prints its wall time:
    that wraps and a fully masked row; and each attention kernel run twice
    and replayed three times in a CUDA graph, bit for bit equal (their
    self-resetting counters: flash's work items, decode's split merge).
+   Both attention kernels also run with a logit softcap of 50 (Gemma 2's)
+   on logits that overrun it: flash at S 257 and 640, windows 0 and 129,
+   decode with a split and an unsplit cache and a ring mask, D 64 and 128
+   at G 1 and 7, f32 and bf16, each held to its plain version at the
+   registry's tolerances (and read against the uncapped plain version,
+   which must miss), with the same replay check; the capped kernels are
+   timed at tinyllama's and deepseek-moe-16b's shapes.
    ssd_scan at its bf16 kernel's edges: H of 1, G - 1, G, G + 1 and 65
    (G heads a block), S of 1-257 across the 64-step tile, (P, N) padded
    to 64 with copies of 16 (TMA), 8 and 4 bytes, with and without an
@@ -53,13 +60,25 @@ and each of which prints its wall time:
    width, B=8, a 1920-token prompt, 128 new tokens. Checks 22 flash and
    22 x 127 decode launches, tokens in range, finite logits, and decode
    against a fresh prefill at four positions (scale-normalised error <=
-   5e-2 and argmax agreeing on 7 of 8 rows); then profiles 16 decode steps
-   for the device's idle share and its heaviest kernels (fails if the
-   trace holds no device events or no decode kernel);
+   5e-2 and argmax agreeing on 7 of 8 rows). Decode goes through the
+   server's step, one captured CUDA graph replayed a token (the phase
+   fails unless it was captured; every serving phase checks the same and
+   prints the graph's device operations). 5b profiles 16 decode steps
+   through the graph and 16 through the eager step (``model.decode_step``)
+   in the same call, for the device's idle share, busy time and
+   operations a step and the heaviest kernels (fails if the trace holds no
+   device events or no decode kernel), and times, without the profiler,
+   the device time a step as served and the host time of a call and of a
+   bare replay. 5c holds the graph to the eager step bit for bit (tokens,
+   logits and caches): tinyllama at full width on phase 5's weights and
+   prompts for 32 steps, and reduced zamba2 in f32 with its SSM and conv
+   states for 16; then a reduced tinyllama with the softcap in f32 is
+   served and its decode held to a fresh prefill (SMALL_TOL);
 6. small-input reference: reduced tinyllama in f32 on the card against the
    same weights on the CPU, TF32 off: logits and one train step, and
    prefill + greedy decode with a full, a rotating-window and an int8
-   cache; reduced zamba2 the same way, with a full cache and a window the
+   cache, and with the softcap; reduced zamba2 the same way, with a full
+   cache and a window the
    prompt overfills; reduced deepseek-moe-16b the same way, and reduced
    xlstm-350m with a full cache;
 7. hybrid serving main path: ``repro_torch.launch.serve`` at zamba2-1.2b
@@ -138,7 +157,9 @@ and each of which prints its wall time:
    as the sharding context: the prefill's MoE layers go through
    ``moe_block_a2a`` (decode routes one token through ``moe_block``, as the
    reference's does). Checks 28 flash and 28 x 127 decode launches, tokens
-   in range and finite logits; reads each capacity stage's dropped share
+   in range and finite logits, and prints which decode step ran (under the
+   rule of ``build_decode_step``, a mesh of one device captures the graph);
+   reads each capacity stage's dropped share
    over a prefill; profiles 16 decode steps and one prefill, beside a
    prefill of the same weights through ``moe_block``, and prints them
    beside phase 9's. Then (13b) the a2a against ``moe_block`` on the same
@@ -172,6 +193,11 @@ a directory without the port's sources.
 runs phases 1-2 for ``chunk_gather`` only, the gathers' timings and
 phase 4b's profile (the staged batch's device operations on the stager's
 side stream), and prints them as JSON last.
+
+    python3 chip_smoke.py --decode
+
+runs phases 1-2, phase 3's attention kernels (the softcap cases and
+times included) and phases 5, 5b and 5c, and prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -209,6 +235,10 @@ MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8
 SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--batch", "8", "--prompt-len", "1920",
               "--new-tokens", "128", "--seed", "0"]
 SMALL_TOL = 1e-4  # f32 on the card vs the CPU: summation order only
+#: The logit softcap of phase 3's and 5c's capped cases: Gemma 2's
+#: attn_logit_softcapping (arXiv:2408.00118, Table 1). No registered
+#: config sets one.
+SOFTCAP = 50.0
 #: int8 caches on the card vs the CPU: K/V that agree to f32 summation
 #: order can still round to neighbouring codes at a .5 boundary, and one
 #: such code moved reduced-model logits by 2.8e-4 of their max
@@ -432,24 +462,17 @@ def bound(flops: float, moved: int, rate: float = BF16_FLOP_PER_S) -> tuple[floa
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def _wrappers() -> dict:
-    from repro_torch.kernels.chunk_gather.ops import chunk_gather, chunk_gather_train
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-
-    return {"chunk_gather_train": chunk_gather_train, "chunk_gather": chunk_gather,
-            "flash_attention": flash_attention, "decode_attention": decode_attention,
-            "ssd_scan": ssd_scan}
-
-
 def zero_launches() -> None:
-    for fn in _wrappers().values():
+    from repro_torch.kernels.common import kernel_wrappers
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    from repro_torch.kernels.common import kernel_wrappers
+
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 # --------------------------------------------------------------- phase 3
@@ -717,6 +740,89 @@ def check_attention_grid(device) -> None:
     check_flash_edges(device)
     check_decode_edges(device)
     check_attention_groups(device)
+    check_softcap(device)
+
+
+#: Phase 3's softcap cases: flash (S, window, D, G) causal and decode (B,
+#: KVH, S, D, G), at the serving head dims and query groups 1 and 7, with
+#: a split and an unsplit decode cache and a ring mask that wraps.
+SOFTCAP_FLASH = list(itertools.product((257, 640), (0, 129), ((64, 1), (128, 7))))
+SOFTCAP_DECODE = [(b, kvh, s, d, g) for d, g in ((64, 1), (128, 7))
+                  for b, kvh, s in ((2, 2, 1000), (16, 16, 300))]
+
+
+def check_softcap(device) -> None:
+    """Both attention kernels with ``softcap = SOFTCAP`` against their plain
+    versions (SOFTCAP_FLASH, SOFTCAP_DECODE) in f32 and bf16 at the
+    registry's tolerances, q and k drawn at scale 4 so that the scaled
+    logits (standard deviation 16) reach the cap's bend; batch row 0 of
+    each decode mask fully masked. Then :func:`check_replay` of a capped
+    bf16 call of each (flash's work counters, decode's split merge)."""
+    import torch
+
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.decode_attention.ops import (
+        _sm_count, _splits, decode_attention, query_group)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def draw(*shape, scale=1.0, dtype):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for s, window, (d, g) in SOFTCAP_FLASH:
+            q, k = draw(2, s, 2 * g, d, scale=4, dtype=dt), draw(2, s, 2, d, scale=4, dtype=dt)
+            v = draw(2, s, 2, d, dtype=dt)
+            got = flash_attention_gqa(q, k, v, causal=True, window=window, softcap=SOFTCAP)
+            want = attention_gqa_ref(q, k, v, causal=True, window=window, softcap=SOFTCAP)
+            err = parity.max_err(got, want)
+            tol = parity.KERNELS["flash_attention"]["tols"][dtype]
+            uncapped = parity.max_err(attention_gqa_ref(q, k, v, causal=True, window=window),
+                                      want)
+            print(f"flash_attention_gqa softcap {SOFTCAP} S={s} window={window} D={d} G={g} "
+                  f"{dtype}: scale-normalised err {err:.3e} (tolerance {tol}); the uncapped "
+                  f"plain version reads {uncapped:.3e}")
+            if not err <= tol or not torch.isfinite(got.float()).all() or not uncapped > tol:
+                fail(f"flash_attention_gqa softcap S={s} window={window} D={d} G={g} {dtype}: "
+                     f"err {err:.3e} > {tol}, or the cap changes nothing ({uncapped:.3e})")
+            worst[("flash", dtype)] = max(worst.get(("flash", dtype), 0.0), err)
+        for b, kvh, s, d, g in SOFTCAP_DECODE:
+            splits = _splits(b * kvh * -(-g // query_group(g)), s, _sm_count(device.index or 0))
+            q = draw(b, kvh * g, d, scale=4, dtype=dt)
+            ck, cv = draw(b, s, kvh, d, scale=4, dtype=dt), draw(b, s, kvh, d, dtype=dt)
+            mask = ring_mask(b, s, s - 37, s - 5, device)
+            got = decode_attention(q, ck, cv, mask, softcap=SOFTCAP)
+            want = decode_attention_plain(q, ck, cv, mask, softcap=SOFTCAP)
+            err = parity.max_err(got, want)
+            tol = parity.KERNELS["decode_attention"]["tols"][dtype]
+            uncapped = parity.max_err(decode_attention_plain(q, ck, cv, mask), want)
+            print(f"decode_attention softcap {SOFTCAP} (B, KVH, S, D)={(b, kvh, s, d)} G={g} "
+                  f"{dtype}, {splits} splits: scale-normalised err {err:.3e} (tolerance {tol}); "
+                  f"the uncapped plain version reads {uncapped:.3e}")
+            if not err <= tol or not torch.isfinite(got.float()).all() or got[0].any() \
+                    or not uncapped > tol:
+                fail(f"decode_attention softcap {(b, kvh, s, d)} G={g} {dtype}: err {err:.3e} "
+                     f"> {tol}, row 0 not zeros, or the cap changes nothing ({uncapped:.3e})")
+            worst[("decode", dtype)] = max(worst.get(("decode", dtype), 0.0), err)
+    print("softcap cases, worst scale-normalised err: " + ", ".join(
+        f"{kernel} {dtype} {err:.3e}" for (kernel, dtype), err in worst.items()))
+    q, k = draw(2, 1000, 8, 64, scale=4, dtype=torch.bfloat16), draw(2, 1000, 2, 64, scale=4,
+                                                                      dtype=torch.bfloat16)
+    v = draw(2, 1000, 2, 64, dtype=torch.bfloat16)
+    check_replay("flash_attention_gqa softcap (work counters)",
+                 lambda: flash_attention_gqa(q, k, v, causal=True, window=300,
+                                             softcap=SOFTCAP))
+    q = draw(8, 32, 64, scale=4, dtype=torch.bfloat16)
+    ck, cv = draw(8, 2048, 4, 64, scale=4, dtype=torch.bfloat16), draw(8, 2048, 4, 64,
+                                                                        dtype=torch.bfloat16)
+    mask = ring_mask(8, 2048, 100, 2000, device)
+    check_replay("decode_attention softcap (split merge)",
+                 lambda: decode_attention(q, ck, cv, mask, softcap=SOFTCAP))
 
 
 #: The query groups of phi3-medium-14b (40/10 heads, G = 4) and
@@ -924,15 +1030,21 @@ def check_flash_main(device) -> dict:
     hybrid = flash_timing(device, 8, 3584, 32, 32, calls=1)
     moe = flash_timing(device, 8, 1920, 16, 16, d=128, calls=5)
     vlm = flash_timing(device, 4, 2560, 56, 8, d=128, calls=2)
+    capped = {"at_main_shape": flash_timing(device, 8, 1920, 32, 4, calls=5, softcap=SOFTCAP),
+              "at_moe_shape": flash_timing(device, 8, 1920, 16, 16, d=128, calls=5,
+                                           softcap=SOFTCAP)}
     spec = parity.KERNELS["flash_attention"]
     return {"name": "flash_attention", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid,
-            "at_moe_shape": moe, "at_vlm_shape": vlm}
+            "at_moe_shape": moe, "at_vlm_shape": vlm, "softcap": capped}
 
 
-def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls: int) -> dict:
-    """flash_attention_gqa on causal (B, S, H, D) x (B, S, KVH, D) bf16:
-    parity with its plain version, and kernel / plain / library time."""
+def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls: int,
+                 softcap: float = 0.0) -> dict:
+    """flash_attention_gqa on causal (B, S, H, D) x (B, S, KVH, D) bf16,
+    logits capped at ``softcap`` when it is > 0: parity with its plain
+    version, and kernel / plain / library time (the library call has no
+    cap: it is timed for the uncapped call only)."""
     import torch
     import torch.nn.functional as F
 
@@ -946,26 +1058,29 @@ def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls
     k, v = (torch.randn(b, s, kvh, d, generator=gen, device=device).bfloat16()
             for _ in range(2))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    got, want = flash_attention_gqa(q, k, v), attention_gqa_ref(q, k, v)
+    got = flash_attention_gqa(q, k, v, softcap=softcap)
+    want = attention_gqa_ref(q, k, v, softcap=softcap)
     err = parity.max_err(got, want)
     abs_err = float((got.float() - want.float()).abs().max())
     if not err <= tol:
-        fail(f"flash_attention_gqa at {(b, s, h, kvh, d)}: err {err:.3e} > {tol}")
+        fail(f"flash_attention_gqa at {(b, s, h, kvh, d)} softcap {softcap}: err {err:.3e} "
+             f"> {tol}")
     del got, want
     torch.cuda.empty_cache()
-    t = turns(lambda: flash_attention_gqa(q, k, v, causal=True),
-              lambda: attention_gqa_ref(q, k, v, causal=True),
-              lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                     enable_gqa=True),
+    library = None if softcap else (
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    t = turns(lambda: flash_attention_gqa(q, k, v, causal=True, softcap=softcap),
+              lambda: attention_gqa_ref(q, k, v, causal=True, softcap=softcap), library,
               calls=calls, reps=5)
     flops = 4 * d * (s * (s + 1) // 2) * b * h  # unmasked causal pairs, QK^T and PV
     moved = 2 * (q.numel() * 2 + k.numel() + v.numel())  # q, k, v read; out written
     bound_ms, bound_by = bound(flops, moved)
-    print(f"flash_attention_gqa q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: device "
-          f"time per call (CUDA graph of {calls} calls): kernel {t['runs_ms'][0]:.4f} / "
-          f"{t['runs_ms'][1]:.4f} ms, plain {t['plain_runs_ms'][0]:.4f} / "
+    library_ms = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    print(f"flash_attention_gqa q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal, softcap "
+          f"{softcap}: device time per call (CUDA graph of {calls} calls): kernel "
+          f"{t['runs_ms'][0]:.4f} / {t['runs_ms'][1]:.4f} ms, plain {t['plain_runs_ms'][0]:.4f} / "
           f"{t['plain_runs_ms'][1]:.4f} ms, library (scaled_dot_product_attention) "
-          f"{t['library_ms']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP "
+          f"{library_ms}; bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP "
           f"at 989 TFLOP/s, {moved} bytes at 3.35 TB/s); scale-normalised err {err:.3e}, "
           f"max abs err {abs_err:.4g}")
     del q, k, v, qt, kt, vt
@@ -992,17 +1107,20 @@ def check_decode_main(device) -> dict:
     vlm["floor_ms"] = launch_floor()
     print(f"decode_attention at llava's shape beside the launch floor (a one-element fill_): "
           f"{vlm['ms'] * 1e3:.2f} us against {vlm['floor_ms'] * 1e3:.3f} us")
+    capped = {"at_main_shape": decode_timing(device, 8, 32, 4, 2048, softcap=SOFTCAP),
+              "at_moe_shape": decode_timing(device, 8, 16, 16, 2048, d=128, softcap=SOFTCAP)}
     spec = parity.KERNELS["decode_attention"]
     return {"name": "decode_attention", "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": None, **row, "at_hybrid_shape": hybrid,
-            "at_moe_shape": moe, "at_vlm_shape": vlm}
+            "at_moe_shape": moe, "at_vlm_shape": vlm, "softcap": capped}
 
 
 def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64,
-                  pos: int | None = None) -> dict:
+                  pos: int | None = None, softcap: float = 0.0) -> dict:
     """decode_attention on a (B, S, KVH, D) bf16 cache at position ``pos``
-    (S - 2 unless given; past S the ring is full): parity with its plain
-    version, and kernel / plain / library time."""
+    (S - 2 unless given; past S the ring is full), scores capped at
+    ``softcap`` when it is > 0: parity with its plain version, and kernel /
+    plain / library time (the library call for the uncapped call only)."""
     import torch
     import torch.nn.functional as F
 
@@ -1015,7 +1133,8 @@ def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64,
     q, ck, cv, _ = parity.make_inputs(case, device=device)
     pos = s - 2 if pos is None else pos
     mask = slot_validity(pos, s, 0, device)[None, :].expand(b, s).contiguous()
-    got, want = decode_attention(q, ck, cv, mask), decode_attention_plain(q, ck, cv, mask)
+    got = decode_attention(q, ck, cv, mask, softcap=softcap)
+    want = decode_attention_plain(q, ck, cv, mask, softcap=softcap)
     err = parity.max_err(got, want)
     abs_err = float((got.float() - want.float()).abs().max())
     tol = parity.KERNELS["decode_attention"]["tols"]["bfloat16"]
@@ -1024,19 +1143,20 @@ def decode_timing(device, b: int, h: int, kvh: int, s: int, *, d: int = 64,
     qt = q[:, :, None, :]
     kt, vt = (x.transpose(1, 2).contiguous() for x in (ck, cv))
     amask = mask[:, None, None, :]
-    t = turns(lambda: decode_attention(q, ck, cv, mask),
-              lambda: decode_attention_plain(q, ck, cv, mask),
-              lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask,
-                                                     enable_gqa=True))
+    library = None if softcap else (
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask, enable_gqa=True))
+    t = turns(lambda: decode_attention(q, ck, cv, mask, softcap=softcap),
+              lambda: decode_attention_plain(q, ck, cv, mask, softcap=softcap), library)
     valid = int(mask.sum())  # (batch, slot) pairs whose K and V must be read
     moved = 2 * q.numel() * 2 + mask.numel() + 2 * valid * kvh * d * 2
     flops = 4 * d * valid * h
     bound_ms, bound_by = bound(flops, moved)
+    library_us = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
     print(f"decode_attention q {tuple(q.shape)} cache {tuple(ck.shape)} bf16, "
-          f"{valid // b} valid slots: device time per call (CUDA graph of 50 calls): kernel "
-          f"{t['runs_ms'][0] * 1e3:.2f} / {t['runs_ms'][1] * 1e3:.2f} us, plain "
+          f"{valid // b} valid slots, softcap {softcap}: device time per call (CUDA graph of 50 "
+          f"calls): kernel {t['runs_ms'][0] * 1e3:.2f} / {t['runs_ms'][1] * 1e3:.2f} us, plain "
           f"{t['plain_runs_ms'][0] * 1e3:.2f} / {t['plain_runs_ms'][1] * 1e3:.2f} us, "
-          f"library (scaled_dot_product_attention) {t['library_ms'] * 1e3:.2f} us; bound "
+          f"library (scaled_dot_product_attention) {library_us}; bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}: {moved} bytes at 3.35 TB/s); "
           f"scale-normalised err {err:.3e}, max abs err {abs_err:.4g}")
     return {"max_abs_err": abs_err, "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1495,37 +1615,227 @@ def serve_path(argv) -> dict:
            "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
            "decode_tok_s": summary["decode_tok_s"],
            "steady_decode_tok_s": summary["steady_decode_tok_s"],
-           "max_memory_allocated_gib": peak / 2**30, "agreement": rows}
+           "max_memory_allocated_gib": peak / 2**30, "agreement": rows,
+           "decode_graph": decode_graph(summary)}
     return run, summary
 
 
-def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
-    """Profile ``steps`` decode steps of the served model after a fresh
-    prefill of the same prompts, from the third step."""
+def decode_graph(summary, *, required: bool = True) -> dict:
+    """Print whether the run's decode went through the captured CUDA graph
+    and the device operations the graph holds; fail unless it did when
+    ``required``. Returns the summary's ``decode_graph``."""
+    graph = summary["decode_graph"]
+    if graph["captured"]:
+        print(f"decode through one captured CUDA graph a step: {graph['nodes']['total']:,d} "
+              f"device operations a replay ({graph['nodes']})")
+    else:
+        print("decode through the eager step, op by op")
+        if required:
+            fail("decode was not captured in a CUDA graph")
+    return graph
+
+
+def profile_decode(decode, cache, tok, pos0: int, first: int, steps: int, label: str) -> dict:
+    """Profile ``decode`` steps ``first`` to ``steps - 1`` (positions from
+    ``pos0``) and read the window from step ``first + 2``: its idle share,
+    operations and busy time a step (:func:`device_profile`). The card is
+    synchronised just before that step's marker, so the window opens on an
+    idle card: a graph's replays run behind the host, and the marker of a
+    step would otherwise open the window inside an earlier step's work."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(first, steps):
+            if t == first + 2:
+                torch.cuda.synchronize()
+            with record_function(f"chip_smoke.{label}{t}"):
+                pass
+            logits, cache = decode(cache, tok, pos0 + t)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+    print(f"{label} steps {first + 2}-{steps - 1}:")
+    out = device_profile(prof, f"chip_smoke.{label}{first + 2}", "decode_attention_kernel",
+                         steps - first - 2)
+    out["busy_ms_per_step"] = out["busy_ms"] / (steps - first - 2)
+    return out
+
+
+def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
+    """Profile decode steps of the served model after a fresh prefill of
+    the same prompts, from the third step, through the step the server
+    uses (``build_decode_step``: one CUDA graph replay a step under the
+    rule; its first call, which runs the warm-up and captures, comes before
+    the profiler starts), and then the eager step (``model.decode_step``)
+    on a second fresh prefill, for its numbers beside the graph's in the
+    same call. With the graph, also, without the profiler: the device time
+    of a step over 16 steps as the server runs them (CUDA events; the host
+    runs ahead), against the traced busy time a step (what is left is the
+    gaps between the graph's operations), and the host time of a call (the
+    tokens' and position's copies and the replay) and of a bare
+    ``graph.replay()``, each timed alone on an idle card (the median of
+    16)."""
+    import torch
 
     from repro_torch.train.train_step import build_decode_step, build_prefill_step
 
     model = summary["model"]
     prompts = summary["prompts"].to(model.device)
     pos0 = summary.get("pos0", prompts.shape[1])  # after a patch arch's patches
-    logits, cache = build_prefill_step(model, summary["max_len"])(
-        {"tokens": prompts, **summary.get("extra", {})})
+    prefill = build_prefill_step(model, summary["max_len"])
+    logits, cache = prefill({"tokens": prompts, **summary.get("extra", {})})
     tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
     decode = build_decode_step(model)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in range(steps):
-            with record_function(f"chip_smoke.decode{t}"):
-                pass
-            logits, cache = decode(cache, tok, pos0 + t)
-            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
-        torch.cuda.synchronize()
-    print(f"decode steps 3-{steps}:")
-    out = device_profile(prof, "chip_smoke.decode2", "decode_attention_kernel", steps - 2)
+    logits, cache = decode(cache, tok, pos0)  # the warm-up and, under the rule, the capture
+    tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+    out = profile_decode(decode, cache, tok, pos0, 1, steps + 1, "decode")
     out["steps"] = steps
+    out["captured"] = decode.captured
+    if decode.captured:
+        out["graph_nodes"] = decode.nodes
+        pos = pos0 + steps + 1
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for t in range(16):
+            logits, cache = decode(cache, tok, pos + t)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / 16
+
+        def alone_us(fn) -> float:
+            samples = []
+            for _ in range(16):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+            return statistics.median(samples)
+
+        call_us = alone_us(lambda: decode(cache, tok, pos))
+        replay_us = alone_us(decode.graph.replay)
+        gap_ms = replay_ms - out["busy_ms_per_step"]
+        out.update(replay_ms=replay_ms, gaps_ms_per_replay=gap_ms, host_us_per_call=call_us,
+                   host_us_per_replay=replay_us)
+        print(f"graph: {decode.nodes['total']:,d} device operations a replay; device time a "
+              f"step {replay_ms:.4f} ms (16 steps as served, CUDA events) against a traced busy "
+              f"{out['busy_ms_per_step']:.4f} ms a step: gaps {gap_ms:.4f} ms a step, "
+              f"{gap_ms / decode.nodes['total'] * 1e3:.3f} us an operation; host "
+              f"{call_us:.1f} us a call (copies and replay), {replay_us:.1f} us a bare replay "
+              f"(each alone on an idle card)")
+    del cache, decode
+    torch.cuda.empty_cache()
+    logits, cache = prefill({"tokens": prompts, **summary.get("extra", {})})
+    tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    eager = torch.inference_mode()(model.decode_step)
+    out["eager"] = profile_decode(eager, cache, tok, pos0, 0, steps, "eager")
+    print(f"decode a step, graph against eager: busy {out['busy_ms_per_step']:.4f} / "
+          f"{out['eager']['busy_ms_per_step']:.4f} ms, idle share {out['idle_share']:.4f} / "
+          f"{out['eager']['idle_share']:.4f}, device operations {out['ops_per_step']:.1f} / "
+          f"{out['eager']['ops_per_step']:.1f}, window {out['window_ms'] / (steps - 2):.4f} / "
+          f"{out['eager']['window_ms'] / (steps - 2):.4f} ms")
+    del cache
     return out
+
+
+def decode_both_ways(model, inputs: dict, pos0: int, max_len: int, steps: int) -> dict:
+    """From two fresh prefills of ``inputs``: ``steps`` greedy decode steps
+    through ``build_decode_step`` (the captured graph) and as many through
+    ``model.decode_step`` (eager). Returns per way the tokens (B, steps),
+    the f32 logits of every step and the caches after the last."""
+    import torch
+
+    from repro_torch.train.train_step import build_decode_step, build_prefill_step
+
+    out = {}
+    for way in ("graph", "eager"):
+        logits, cache = build_prefill_step(model, max_len)(inputs)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        step = (build_decode_step(model) if way == "graph"
+                else torch.inference_mode()(model.decode_step))
+        toks, logs = [], []
+        for t in range(steps):
+            logits, cache = step(cache, tok, pos0 + t)
+            tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+            logs.append(logits[:, 0].to(torch.float32, copy=True))
+        if way == "graph" and not step.captured:
+            fail("build_decode_step did not capture a CUDA graph on the card")
+        out[way] = {"tokens": torch.cat(toks, 1), "logits": torch.stack(logs), "cache": cache}
+        del step
+    return out
+
+
+def graph_agreement(runs: dict, name: str) -> dict:
+    """Hold :func:`decode_both_ways`'s graph run to its eager run: tokens
+    equal on every row and step; logits and every cache leaf bit for bit
+    (the same kernels with the same launch parameters read the same
+    inputs, and no reduction on the path is order-free, so nothing may
+    differ)."""
+    import torch
+
+    g, e = runs["graph"], runs["eager"]
+    tokens_equal = torch.equal(g["tokens"], e["tokens"])
+    logit_diff = float((g["logits"] - e["logits"]).abs().max())
+    leaves = {f"{i}.{k}": float((a[k].float() - b[k].float()).abs().max())
+              for i, (a, b) in enumerate(zip(g["cache"], e["cache"])) for k in a}
+    steps, rows = g["tokens"].shape[1], g["tokens"].shape[0]
+    print(f"{name}: {steps} decode steps through the graph and eagerly from the same prefill: "
+          f"tokens equal on all {rows} rows and steps: {tokens_equal}; max abs logit difference "
+          f"{logit_diff:.3e}; {len(leaves)} cache leaves, max abs difference "
+          f"{max(leaves.values()):.3e} (bound: 0, bit for bit)")
+    if not tokens_equal or logit_diff != 0 or any(leaves.values()):
+        fail(f"{name}: the graph's decode differs from the eager step's")
+    return {"steps": steps, "rows": rows, "tokens_equal": tokens_equal,
+            "max_abs_logit_diff": logit_diff, "max_abs_cache_diff": max(leaves.values())}
+
+
+def graph_against_eager(summary, device) -> dict:
+    """Phase 5c: the captured graph against the eager step. tinyllama-1.1b at
+    full width with phase 5's weights and prompts (B = 8, prompt 1920), 32
+    steps each way; then reduced zamba2 in f32 (the SSM and conv states held
+    too), 16 steps; both bit for bit (:func:`graph_agreement`). Then reduced
+    tinyllama with ``logit_softcap = SOFTCAP`` in f32 on the card: served,
+    and decode held to a fresh prefill at three steps (SMALL_TOL, argmax
+    equal on every row)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import build_parser, prefill_agreement, serve
+    from repro_torch.models import build_model
+
+    model = summary["model"]
+    inputs = {"tokens": summary["prompts"].to(model.device)}
+    full = graph_agreement(
+        decode_both_ways(model, inputs, summary["pos0"], summary["max_len"], 32),
+        "tinyllama-1.1b full width, bf16")
+    torch.cuda.empty_cache()
+    cfg = reduced(get_config("zamba2-1.2b"))
+    hybrid = build_model(cfg, device=device).init(0)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+    reduced_hybrid = graph_agreement(
+        decode_both_ways(hybrid, {"tokens": torch.from_numpy(prompts).to(device)}, 64, 96, 16),
+        "reduced zamba2-1.2b, f32")
+    capped = dataclasses.replace(reduced(get_config("tinyllama-1.1b")), logit_softcap=SOFTCAP)
+    args = build_parser().parse_args(["--arch", "tinyllama-1.1b", "--full", "--batch", "4",
+                                      "--prompt-len", "64", "--new-tokens", "17", "--seed", "0"])
+    steps = (0, 8, 15)
+    with patched_config(capped):
+        run = serve(args, keep_logits=steps)
+    decode_graph(run)
+    rows = prefill_agreement(run, steps)
+    for r in rows:
+        print(f"reduced tinyllama-1.1b, logit_softcap {SOFTCAP}, f32: decode step {r['step']} vs "
+              f"a fresh prefill: scale-normalised err {r['err']:.3e} (tolerance {SMALL_TOL}), "
+              f"argmax agrees on {r['argmax_agree']}/{r['rows']} rows")
+        if not (r["err"] <= SMALL_TOL and r["argmax_agree"] == r["rows"]):
+            fail(f"softcapped decode step {r['step']} disagrees with a fresh prefill")
+    return {"full_width": full, "reduced_hybrid_f32": reduced_hybrid,
+            "softcap": {"cap": SOFTCAP, "agreement": rows}}
 
 
 def hybrid_path(argv) -> tuple[dict, dict]:
@@ -1589,7 +1899,8 @@ def hybrid_path(argv) -> tuple[dict, dict]:
            "param_count": cfg.param_count(), "prefill_s": summary["prefill_s"],
            "decode_s": summary["decode_s"], "decode_tok_s": summary["decode_tok_s"],
            "steady_decode_tok_s": summary["steady_decode_tok_s"],
-           "max_memory_allocated_gib": peak / 2**30, "agreement": row}
+           "max_memory_allocated_gib": peak / 2**30, "agreement": row,
+           "decode_graph": decode_graph(summary)}
     return run, summary
 
 
@@ -1754,7 +2065,8 @@ def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     """Reduced ``arch`` in f32: prefill + 12 greedy decode steps on
     ``device`` against the same weights on the CPU, with a full cache, a
     16-slot rotating window that the 24-token prompt overfills (archs with
-    attention), and (for tinyllama) an int8 cache. A ``patch`` arch
+    attention), and (for tinyllama) an int8 cache and logits capped at
+    SOFTCAP. A ``patch`` arch
     prefills seeded random patches before the prompt, and its positions
     start after them. Tokens equal; logits within SMALL_TOL
     (SMALL_INT8_TOL for int8)."""
@@ -1769,7 +2081,8 @@ def small_serving(device, arch: str = "tinyllama-1.1b") -> list:
     if get_config(arch).family != "ssm":  # xLSTM has no attention, so no window
         variants += (("window", {"window": 16}, 24, 37),)
     if arch == "tinyllama-1.1b":
-        variants += (("int8", {"kv_cache_dtype": "int8"}, 16, 29),)
+        variants += (("int8", {"kv_cache_dtype": "int8"}, 16, 29),
+                     ("softcap", {"logit_softcap": SOFTCAP}, 16, 29))
     out = []
     for name, changes, prompt_len, max_len in variants:
         cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
@@ -2108,12 +2421,13 @@ def moe_prefill_drops(summary) -> dict:
             "per_layer_share": [d / n for d, n in seen]}
 
 
-def attention_serve_path(argv) -> tuple[dict, dict]:
+def attention_serve_path(argv, *, graph_required: bool = True) -> tuple[dict, dict]:
     """Drive ``repro_torch.launch.serve`` with ``argv`` on a model whose
     every layer attends (counts zeroed just before); check one flash launch
     a layer in the prefill, one decode launch a layer and step, no other
-    kernel, tokens in range and finite logits; return its numbers and the
-    run's summary."""
+    kernel, tokens in range, finite logits and (when ``graph_required``)
+    decode through the captured graph; return its numbers and the run's
+    summary."""
     import torch
 
     from repro_torch.launch.serve import build_parser, serve
@@ -2150,7 +2464,8 @@ def attention_serve_path(argv) -> tuple[dict, dict]:
            "prefill_s": summary["prefill_s"], "decode_s": summary["decode_s"],
            "decode_tok_s": summary["decode_tok_s"],
            "steady_decode_tok_s": summary["steady_decode_tok_s"],
-           "max_memory_allocated_gib": peak / 2**30}
+           "max_memory_allocated_gib": peak / 2**30,
+           "decode_graph": decode_graph(summary, required=graph_required)}
     return run, summary
 
 
@@ -2180,7 +2495,7 @@ def stale_cache_reading(summary, t: int) -> dict:
     import torch
 
     from repro_torch.launch.serve import prefill_agreement
-    from repro_torch.train.train_step import build_decode_step, build_prefill_step
+    from repro_torch.train.train_step import build_prefill_step
 
     model = summary["model"]
     pos0 = summary.get("pos0", summary["prompts"].shape[1])
@@ -2191,7 +2506,8 @@ def stale_cache_reading(summary, t: int) -> dict:
         for entry in cache:
             entry["k"][:, :, pos0 + t - 1] = 0
             entry["v"][:, :, pos0 + t - 1] = 0
-    logits, _ = build_decode_step(model)(cache, seq[:, -1:], pos0 + t)
+    with torch.inference_mode():  # one step: the eager step, no graph to capture
+        logits, _ = model.decode_step(cache, seq[:, -1:], pos0 + t)
     del cache
     (row,) = prefill_agreement({**summary, "logits": {t: logits[:, 0].float()}}, (t,))
     return row
@@ -2308,7 +2624,8 @@ def xlstm_path(argv) -> tuple[dict, dict]:
            "param_count": cfg.param_count(), "prefill_s": summary["prefill_s"],
            "decode_s": summary["decode_s"], "decode_tok_s": summary["decode_tok_s"],
            "steady_decode_tok_s": summary["steady_decode_tok_s"],
-           "max_memory_allocated_gib": peak / 2**30, "slstm_prefill": share}
+           "max_memory_allocated_gib": peak / 2**30, "slstm_prefill": share,
+           "decode_graph": decode_graph(summary)}
     return run, summary
 
 
@@ -2406,8 +2723,8 @@ def vlm_agreement(summary, new_tokens: int) -> dict:
         logits, cache = decode(cache, tok, pos0 + t)
         tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         out.append(tok)
-        if t in VLM_AGREEMENT_STEPS:
-            kept[t] = logits[:, 0].float()
+        if t in VLM_AGREEMENT_STEPS:  # a copy: the graph's next replay overwrites its logits
+            kept[t] = logits[:, 0].to(torch.float32, copy=True)
     del cache, logits
     check = {"model": model, "prompts": prompts, "tokens": torch.cat(out, 1).cpu(),
              "logits": kept, "extra": {"patch_embeds": patches}, "pos0": pos0,
@@ -2587,7 +2904,11 @@ def a2a_path(argv, moe_run: dict) -> tuple[dict, dict]:
           f"{buffers['cap_local']:,d}, an expert buffer of "
           f"{buffers['expert_buffer_bytes'] / 1e9:.3f} GB")
     with one_rank_mesh(), patched_config(cfg):
-        run, summary = attention_serve_path(argv)
+        # build_decode_step's rule: a graph unless the mesh spans more than one device
+        run, summary = attention_serve_path(argv, graph_required=False)
+        step = "captured graph" if run["decode_graph"]["captured"] else "eager step"
+        print(f"phase 13 decoded through the {step} (a sharding context over a 1x1 mesh is "
+              f"installed)")
         drops = a2a_prefill_drops(summary)
         if drops["moe_layers"] != cfg.num_layers - cfg.moe_first_dense:
             fail(f"the a2a prefill ran {drops['moe_layers']} MoE layers")
@@ -2735,6 +3056,11 @@ def main(argv=None) -> int:
                         help="run only phases 1-2 for chunk_gather, the gathers' timings "
                              "(launch floor, B = 8, the large shape, host time) and phase "
                              "4b's profile of the training stager; print them as JSON last")
+    parser.add_argument("--decode", action="store_true",
+                        help="run only phases 1-2, phase 3's attention kernels (softcap "
+                             "cases included), and phases 5, 5b and 5c (tinyllama served "
+                             "through the decode graph, its profile beside the eager step's, "
+                             "the graph against the eager step); print them as JSON last")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2779,6 +3105,22 @@ def main(argv=None) -> int:
         print(json.dumps({"gathers": times}))
         return 0
     build_all()
+    if args.decode:
+        phase("3. the attention kernels' parity and times (softcap cases included)")
+        check_attention_grid(device)
+        kernels = {"flash_attention": check_flash_main(device),
+                   "decode_attention": check_decode_main(device)}
+        torch.cuda.empty_cache()
+        phase("5. serving main path: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
+        serve_run, summary = serve_path(SERVE_ARGS)
+        phase("5b. where decode's device time goes (torch.profiler), graph and eager")
+        serve_run["decode_profile"] = where_decode_time_goes(summary)
+        phase("5c. the decode graph against the eager step")
+        serve_run["graph_against_eager"] = graph_against_eager(summary, device)
+        phase(None)
+        print(card_line)
+        print(json.dumps({"decode": {"serve_path": serve_run, "kernels": kernels}}))
+        return 0
 
     # ------------------------------------------------- 3. kernel parity
     phase("3. kernel parity (CUDA kernels vs plain PyTorch on the card)")
@@ -2811,8 +3153,11 @@ def main(argv=None) -> int:
     phase("5. serving main path: repro_torch.launch.serve " + " ".join(SERVE_ARGS))
     serve_run, summary = serve_path(SERVE_ARGS)
 
-    phase("5b. where decode's device time goes (torch.profiler)")
+    phase("5b. where decode's device time goes (torch.profiler), graph and eager")
     serve_run["decode_profile"] = where_decode_time_goes(summary)
+
+    phase("5c. the decode graph against the eager step")
+    serve_run["graph_against_eager"] = graph_against_eager(summary, device)
     del summary
     torch.cuda.empty_cache()
 

@@ -11,12 +11,14 @@ request as well.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import statistics
 
 import torch
 
-__all__ = ["checked_cuda", "graph_ms", "resolve_device", "round_up", "zeroed_counters"]
+__all__ = ["checked_cuda", "graph_ms", "graph_nodes", "kernel_wrappers", "resolve_device",
+           "round_up", "zeroed_counters"]
 
 #: Compute capability the CUDA sources are built for (``sm_90a``).
 CAPABILITY = (9, 0)
@@ -109,3 +111,53 @@ def graph_ms(call, calls: int = 10, reps: int = 5) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / calls)
     return statistics.median(samples)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper, by name; each counts its launches in
+    ``<wrapper>.launches``."""
+    from .chunk_gather.ops import chunk_gather, chunk_gather_train
+    from .decode_attention.ops import decode_attention
+    from .flash_attention.ops import flash_attention
+    from .ssd_scan.ops import ssd_scan
+
+    return {"chunk_gather_train": chunk_gather_train, "chunk_gather": chunk_gather,
+            "flash_attention": flash_attention, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan}
+
+
+#: ``CUgraphNodeType`` values (libcuda's graph API) of the nodes a
+#: captured step holds.
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphGetNodes.restype = lib.cuGraphNodeGetType.restype = ctypes.c_int  # CUresult
+    return lib
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> dict:
+    """The device operations a captured graph holds, by kind: ``{"total",
+    "kernel", "memcpy", "memset", "other"}``, read with libcuda's
+    ``cuGraphGetNodes``. ``graph`` must have been made with
+    ``keep_graph=True``."""
+    lib = _libcuda()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {"total": n.value, **{kind: 0 for kind in _NODE_TYPES.values()}, "other": 0}
+    kind = ctypes.c_int()
+    for node in nodes:
+        if lib.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        out[_NODE_TYPES.get(kind.value, "other")] += 1
+    return out

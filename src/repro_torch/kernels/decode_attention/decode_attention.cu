@@ -49,6 +49,13 @@
 //   ticket merges the splits, writes the output and resets the counter to
 //   0. The counters therefore assume one stream at a time per device, which
 //   is how decode runs; the wrapper keeps them, zeroed once.
+// - a logit softcap (the reference's `logit_softcap`, applied where its
+//   decode applies it: s = cap * tanh(s / cap) on the f32 scaled score,
+//   before the mask) is a template flag, so a cap of 0 runs the uncapped
+//   code unchanged. The capped score is tanhf (accurate, not
+//   tanh.approx.f32: the f32 grid holds the kernel to 2e-5), then taken to
+//   base 2: cap_out * tanhf(dot * cap_in), cap_in = D^-0.5 / cap and
+//   cap_out = cap * log2(e).
 // Where it still falls short: invalid slots are read and masked rather than
 // skipped (the ring mask of decode is all but fully valid); the tensor-core
 // path wastes half of each mma on the zero rows.
@@ -114,6 +121,23 @@ __device__ __forceinline__ int swz(int r, int c) {
   return CPR >= 8 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
 }
 
+// The score of a valid slot in base 2: dot * D^-0.5 * log2(e), or with the
+// cap, cap * tanh(dot * D^-0.5 / cap) * log2(e).
+struct Scale {
+  float log2;     // D^-0.5 log2(e)
+  float cap_in;   // D^-0.5 / cap
+  float cap_out;  // cap log2(e)
+};
+
+template <bool kCap>
+__device__ __forceinline__ float score(float dot, const Scale& sc) {
+  if constexpr (kCap) {
+    return sc.cap_out * tanhf(dot * sc.cap_in);
+  } else {
+    return dot * sc.log2;
+  }
+}
+
 template <int CPR>
 __device__ __forceinline__ const uint8_t* chunk_at(const uint8_t* tile, int r, int c) {
   return tile + (r * CPR + swz<CPR>(r, c)) * 16;
@@ -151,8 +175,9 @@ struct CoreWarp {
   }
 
   // All the tile's scores, one max and one correction per query, then p v.
+  template <bool kCap>
   __device__ __forceinline__ void tile(const uint8_t* kt, const uint8_t* vt, int r0, int hi,
-                                       const uint8_t* mb, float scale_log2) {
+                                       const uint8_t* mb, const Scale& scale) {
     float sc[PASSES][GQ], mx[GQ];
 #pragma unroll
     for (int gi = 0; gi < GQ; ++gi) mx[gi] = -INFINITY;
@@ -181,7 +206,7 @@ struct CoreWarp {
 #pragma unroll
         for (int off = LPR / 2; off > 0; off /= 2)
           dot[gi] += __shfl_xor_sync(0xffffffffu, dot[gi], off);
-        sc[p][gi] = ok ? dot[gi] * scale_log2 : -INFINITY;  // exp2(-inf) = 0: the p guard
+        sc[p][gi] = ok ? score<kCap>(dot[gi], scale) : -INFINITY;  // exp2(-inf) = 0: the p guard
         mx[gi] = fmaxf(mx[gi], sc[p][gi]);
       }
     }
@@ -310,8 +335,9 @@ struct MmaWarp {
     l = 0.f;
   }
 
+  template <bool kCap>
   __device__ __forceinline__ void tile(const uint8_t* kt, const uint8_t* vt, int r0, int hi,
-                                       const uint8_t* mb, float scale_log2) {
+                                       const uint8_t* mb, const Scale& scale) {
     float sc[2][4];
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
@@ -332,7 +358,7 @@ struct MmaWarp {
       for (int e = 0; e < 2; ++e) {
         const int j = r0 + nb * 8 + 2 * (lane % 4) + e;
         const bool ok = j < hi && mb[j] != 0;
-        sc[nb][e] = ok ? sc[nb][e] * scale_log2 : -INFINITY;  // exp2(-inf) = 0: the p guard
+        sc[nb][e] = ok ? score<kCap>(sc[nb][e], scale) : -INFINITY;  // exp2(-inf) = 0: the p guard
         mx = fmaxf(mx, sc[nb][e]);
       }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));  // a query's 16 rows: one quad
@@ -381,11 +407,11 @@ struct MmaWarp {
   }
 };
 
-template <typename T, int D, int GQ>
+template <typename T, int D, int GQ, bool kCap>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ part,
-    int* __restrict__ tickets, int kvh, int g, int s, int chunk, float scale_log2) {
+    int* __restrict__ tickets, int kvh, int g, int s, int chunk, Scale scale) {
   using Sh = Shape<T, D, GQ>;
   using Warp = typename std::conditional<Sh::kMma, MmaWarp<D>, CoreWarp<T, D, GQ>>::type;
   constexpr int VEC = Sh::kVec, CPR = Sh::kCpr, ROWS = Sh::kRows;
@@ -446,7 +472,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     __syncwarp();  // the tile is visible, and the stage refilled next is free
     issue(it + kStages - 1);
     const uint8_t* kt = ring + (it % kStages) * Sh::kStageBytes;
-    w.tile(kt, kt + Sh::kStageBytes / 2, first + it * kWarps * ROWS, hi, mb, scale_log2);
+    w.template tile<kCap>(kt, kt + Sh::kStageBytes / 2, first + it * kWarps * ROWS, hi, mb,
+                          scale);
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with its ring: reuse it for the merge
@@ -505,14 +532,14 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   if (threadIdx.x == 0) tickets[blockIdx.x] = 0;  // ready for the next call
 }
 
-template <typename T, int D, int GQ>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
-           void* part, void* tickets, int b, int kvh, int g, int s, int splits,
-           cudaStream_t stream) {
+template <typename T, int D, int GQ, bool kCap>
+int launch_cap(const void* q, const void* k, const void* v, const void* mask, void* out,
+               void* part, void* tickets, int b, int kvh, int g, int s, int splits, float cap,
+               cudaStream_t stream) {
   using Sh = Shape<T, D, GQ>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T, D, GQ>,
+    cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T, D, GQ, kCap>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Sh::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -522,23 +549,40 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   const int span = kWarps * Sh::kRows;
   const int chunk = ((s + splits - 1) / splits + span - 1) / span * span;
   const dim3 grid(b * kvh * ((g + GQ - 1) / GQ), splits);
-  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  decode_attention_kernel<T, D, GQ><<<grid, kThreads, Sh::kSmemBytes, stream>>>(
+  const float rsqrt_d = 1.0f / sqrtf(static_cast<float>(D));
+  const Scale scale{kLog2e / sqrtf(static_cast<float>(D)), kCap ? rsqrt_d / cap : 0.f,
+                    cap * kLog2e};
+  decode_attention_kernel<T, D, GQ, kCap><<<grid, kThreads, Sh::kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(part),
-      static_cast<int*>(tickets), kvh, g, s, chunk, scale_log2);
+      static_cast<int*>(tickets), kvh, g, s, chunk, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, int GQ>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
+           void* part, void* tickets, int b, int kvh, int g, int s, int splits, float cap,
+           cudaStream_t stream) {
+  if (cap > 0.f)
+    return launch_cap<T, D, GQ, true>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
+                                      cap, stream);
+  return launch_cap<T, D, GQ, false>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
+                                     cap, stream);
 }
 
 template <typename T, int D>
 int dispatch_gq(int gq, const void* q, const void* k, const void* v, const void* mask,
                 void* out, void* part, void* tickets, int b, int kvh, int g, int s, int splits,
-                cudaStream_t st) {
+                float cap, cudaStream_t st) {
   switch (gq) {
-    case 1: return launch<T, D, 1>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
-    case 2: return launch<T, D, 2>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
-    case 4: return launch<T, D, 4>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
-    case 8: return launch<T, D, 8>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
+    case 1:
+      return launch<T, D, 1>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, cap, st);
+    case 2:
+      return launch<T, D, 2>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, cap, st);
+    case 4:
+      return launch<T, D, 4>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, cap, st);
+    case 8:
+      return launch<T, D, 8>(q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, cap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -546,15 +590,17 @@ int dispatch_gq(int gq, const void* q, const void* k, const void* v, const void*
 template <typename T>
 int dispatch_d(int d, int gq, const void* q, const void* k, const void* v, const void* mask,
                void* out, void* part, void* tickets, int b, int kvh, int g, int s, int splits,
-               cudaStream_t st) {
+               float cap, cudaStream_t st) {
   switch (d) {
     case 32:
-      return dispatch_gq<T, 32>(gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
+      return dispatch_gq<T, 32>(gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
+                                cap, st);
     case 64:
-      return dispatch_gq<T, 64>(gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
+      return dispatch_gq<T, 64>(gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
+                                cap, st);
     case 128:
       return dispatch_gq<T, 128>(gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
-                                 st);
+                                 cap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -562,25 +608,28 @@ int dispatch_d(int d, int gq, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/out (B, KVH*G, D); k/v (B, S, KVH, D);
-// mask (B, S) bool; gq the query group (1, 2, 4 or 8, >= G unless 8).
+// mask (B, S) bool; gq the query group (1, 2, 4 or 8, >= G unless 8);
+// softcap > 0 caps the scaled scores (0: uncapped).
 // With splits > 1: part (B*KVH*ceil(G/gq), splits, gq, D + 2) float32
 // scratch, and tickets B*KVH*ceil(G/gq) int32 counters that are 0 on entry
 // and are left 0.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, void* part, void* tickets,
                                        int b, int kvh, int g, int s, int d, int gq, int splits,
-                                       int dtype, void* stream) {
+                                       int dtype, float softcap, void* stream) {
   if (b == 0 || kvh == 0 || g == 0) return static_cast<int>(cudaSuccess);
   if (s <= 0 || splits <= 0 || splits > 65535 || (gq < g && gq != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (splits > 1 && (part == nullptr || tickets == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (!(softcap >= 0.f) || isinf(softcap)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(d, gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits, st);
+    return dispatch_d<float>(d, gq, q, k, v, mask, out, part, tickets, b, kvh, g, s, splits,
+                             softcap, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(d, gq, q, k, v, mask, out, part, tickets, b, kvh, g, s,
-                                     splits, st);
+                                     splits, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,6 +4,9 @@ On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
 launches the kernel in ``decode_attention.cu`` on the current stream, or
 raises. ``decode_attention.launches`` counts kernel launches, and only
 those (one per call: the splits of S merge inside the same launch).
+``softcap > 0`` caps the scaled scores at ``softcap * tanh(s / softcap)``
+before the mask (the reference's ``logit_softcap``); 0 launches the
+uncapped instantiation.
 
 The kernel's split merge takes tickets from int32 counters that each
 launch leaves at 0 (``common.zeroed_counters``).
@@ -35,7 +38,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_launch
     if fn.argtypes is None:
         # Pointers and the stream as c_void_p: never cut to 32 bits.
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -66,7 +70,7 @@ def _splits(blocks: int, s: int, sms: int) -> int:
     return max(1, min(want, -(-s // _MIN_ROWS_PER_SPLIT), 65535))
 
 
-def _check(q, cache_k, cache_v, mask) -> None:
+def _check(q, cache_k, cache_v, mask, softcap) -> None:
     for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v), ("mask", mask)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -95,20 +99,23 @@ def _check(q, cache_k, cache_v, mask) -> None:
         raise ValueError(f"mask {tuple(mask.shape)} is not (B, S) = {(b, s)}")
     if s == 0:
         raise ValueError("the cache has no slots")
+    if not 0.0 <= softcap < float("inf"):
+        raise ValueError(f"softcap must be a finite number >= 0, got {softcap}")
 
 
-def decode_attention(q, cache_k, cache_v, mask):
+def decode_attention(q, cache_k, cache_v, mask, *, softcap=0.0):
     """One-token GQA attention against a KV cache.
 
     ``q`` (B, H, D); ``cache_k``/``cache_v`` (B, S, KVH, D); ``mask``
     (B, S) bool, True where a slot holds a valid position (ring buffers
     included). Returns (B, H, D) in ``q.dtype``; a row with no valid slot
-    is zeros. Query head ``h`` reads kv head ``h // (H // KVH)``.
+    is zeros. Query head ``h`` reads kv head ``h // (H // KVH)``. Scores
+    are capped at ``softcap`` when it is > 0.
     """
-    _check(q, cache_k, cache_v, mask)
+    _check(q, cache_k, cache_v, mask, softcap)
     device = q.device
     if device.type in ("cpu", "meta"):  # meta: the dry run's shapes, no data
-        return decode_attention_plain(q, cache_k, cache_v, mask)
+        return decode_attention_plain(q, cache_k, cache_v, mask, softcap)
     resolve_device(device)  # raises unless a capability-9.0 card (checked once per card)
     b, h, d = q.shape
     s, kvh = cache_k.shape[1], cache_k.shape[2]
@@ -132,7 +139,7 @@ def decode_attention(q, cache_k, cache_v, mask):
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(), b, kvh, g, s, d, gq, splits,
-            _DTYPES[q.dtype], stream,
+            _DTYPES[q.dtype], float(softcap), stream,
         )
     if rc != 0:
         raise RuntimeError("decode_attention launch failed: "

@@ -63,6 +63,13 @@
 //   more. Items are numbered head-major, a head's q tiles longest first,
 //   so the blocks in flight share a few heads' K and V in L2. No grid axis
 //   carries B*H, so it has no 65,535 cap.
+// - a logit softcap (the reference's `logit_softcap`: s = cap * tanh(s /
+//   cap) on the f32 scaled logits, before the mask) is a template flag of
+//   both kernels, so a cap of 0 runs the uncapped code unchanged. The
+//   capped scores use tanhf (accurate, not tanh.approx.f32: the f32 grid
+//   holds the kernel to 2e-5); the bf16 kernel caps the S accumulators in
+//   place, as cap log2(e) * tanhf(s * D^-0.5 / cap), and its softmax then
+//   takes them at scale 1.
 // Where it still falls short: the diagonal tile computes its masked half;
 // every 128-row q tile rereads its K and V from L2 (32 KB a kv tile at
 // D = 64), more than the L2 delivers at the tensor cores' rate (clusters
@@ -111,10 +118,11 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int h, int kvh, int s, int causal, int window, float scale) {
+    float* __restrict__ o, int h, int kvh, int s, int causal, int window, float scale,
+    float cap) {
   constexpr int LD = D + 4;
   constexpr int DPT = D / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -195,7 +203,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
         ok[j] = kpos < s && (!causal || kpos <= qpos) && (!window || kpos > qpos - window);
-        sc[i][j] = ok[j] ? sc[i][j] * scale : kNegInf;
+        float sv = sc[i][j] * scale;
+        if constexpr (kCap) sv = cap * tanhf(sv / cap);
+        sc[i][j] = ok[j] ? sv : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
@@ -249,22 +259,22 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   }
 }
 
-template <int D>
+template <int D, bool kCap>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b, int h, int kvh,
-               int s, int causal, int window, cudaStream_t stream) {
+               int s, int causal, int window, float cap, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_f32_kernel<D, kCap>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(b * h, (s + kBq - 1) / kBq);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  flash_attention_f32_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_attention_f32_kernel<D, kCap><<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), h, kvh, s, causal, window, scale);
+      static_cast<float*>(o), h, kvh, s, causal, window, scale, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,16 +545,24 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&
   wgmma_commit();
 }
 
-// The online softmax of one tile's S accumulators, in place: mask where
-// needed, the new running max m (of s * scale_log2, per row, from -1e30),
-// p = exp2(s * scale_log2 - m), l rescaled and increased by the unrounded
-// p. corr[r] is what the output rows take for the new max. Fragment: this
-// thread's rows are row0 (e < 2) and row0 + 8 (e >= 2) of n8 block j,
-// columns 8 j + col0 + (e & 1).
+// The online softmax of one tile's S accumulators, in place: with the cap,
+// s becomes cap_out * tanhf(s * cap_in) (cap log2(e) * tanh(s D^-0.5 /
+// cap)) and is taken at scale 1 from there; mask where needed, the new
+// running max m (of s * scale_log2, per row, from -1e30), p = exp2(s *
+// scale_log2 - m), l rescaled and increased by the unrounded p. corr[r]
+// is what the output rows take for the new max. Fragment: this thread's
+// rows are row0 (e < 2) and row0 + 8 (e >= 2) of n8 block j, columns 8 j
+// + col0 + (e & 1).
+template <bool kCap>
 __device__ __forceinline__ void softmax_tile(float (&sacc)[64], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], bool masked, int k0, int row0,
                                              int col0, int s, int causal, int window,
-                                             float scale_log2) {
+                                             float scale_log2, float cap_in, float cap_out) {
+  if constexpr (kCap) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sacc[j] = cap_out * tanhf(sacc[j] * cap_in);
+    scale_log2 = 1.f;
+  }
   if (masked) {
     // Key k0 + col0 + x (x = 8 j + (e & 1), a constant) is valid for row r
     // when lo[r] < x <= hi[r]: x below S, not after the row if causal, and
@@ -627,11 +645,12 @@ __device__ __forceinline__ WorkItem work_item(int idx, int ny, int h, int kvh, i
 // the producer loads the next item's Q and first tiles while the consumers
 // finish the last one. The last block to stop taking items sets both
 // counters back to 0 for the next launch.
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int h, int kvh,
-    int s, int causal, int window, float scale_log2, int n_items, int* __restrict__ sched) {
+    int s, int causal, int window, float scale_log2, int n_items, int* __restrict__ sched,
+    float cap_in, float cap_out) {
   using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + 2];  // full[], empty[], q full, q empty
@@ -746,8 +765,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
     wgmma_wait<0>();
     reg_fence(sacc);
     if (w.n_tiles == 1 && lane == 0) mbar_arrive(q_empty);  // Q is no longer read
-    softmax_tile(sacc, m, l, corr, masked(w.k_begin), w.k_begin, row0, col0, s, causal, window,
-                 scale_log2);
+    softmax_tile<kCap>(sacc, m, l, corr, masked(w.k_begin), w.k_begin, row0, col0, s, causal,
+                       window, scale_log2, cap_in, cap_out);
     pack_p(sacc, pa);
     for (int i = 1; i < w.n_tiles; ++i) {
       const int prev = it % kStages;
@@ -764,8 +783,8 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
       wgmma_wait<1>();  // QK^T of tile i has landed
       reg_fence(sacc);
       if (i == w.n_tiles - 1 && lane == 0) mbar_arrive(q_empty);
-      softmax_tile(sacc, m, l, corr, masked(k0), k0, row0, col0, s, causal, window,
-                   scale_log2);
+      softmax_tile<kCap>(sacc, m, l, corr, masked(k0), k0, row0, col0, s, causal, window,
+                         scale_log2, cap_in, cap_out);
       reg_fence(sacc);  // the exponentials stay ahead of the wait: they overlap the PV
       wgmma_wait<0>();  // PV of tile i - 1 has landed
       reg_fence(oacc);
@@ -852,14 +871,15 @@ int encode_map(CUtensorMap* map, const void* base, int heads, int s, int b) {
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, bool kCap>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* sched, int b,
-                 int h, int kvh, int s, int causal, int window, cudaStream_t stream) {
+                 int h, int kvh, int s, int causal, int window, float cap,
+                 cudaStream_t stream) {
   constexpr int bytes = Tiles<D>::kSmemBytes;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D, kCap>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
@@ -877,28 +897,35 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* sch
   if (err2 != cudaSuccess) return static_cast<int>(err2);
   const int grid = static_cast<int>(items < sms ? items : sms);  // one block per SM
   const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
-  flash_attention_wgmma_kernel<D><<<grid, kWgmmaThreads, bytes, stream>>>(
+  const float cap_in = kCap ? 1.0f / sqrtf(static_cast<float>(D)) / cap : 0.f;
+  flash_attention_wgmma_kernel<D, kCap><<<grid, kWgmmaThreads, bytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), h, kvh, s, causal, window,
-      scale_log2, static_cast<int>(items), static_cast<int*>(sched));
+      scale_log2, static_cast<int>(items), static_cast<int*>(sched), cap_in, cap * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kCap>
 int dispatch_f32(int d, const void* q, const void* k, const void* v, void* o, int b, int h,
-                 int kvh, int s, int causal, int window, cudaStream_t stream) {
+                 int kvh, int s, int causal, int window, float cap, cudaStream_t st) {
   switch (d) {
-    case 32: return launch_f32<32>(q, k, v, o, b, h, kvh, s, causal, window, stream);
-    case 64: return launch_f32<64>(q, k, v, o, b, h, kvh, s, causal, window, stream);
-    case 128: return launch_f32<128>(q, k, v, o, b, h, kvh, s, causal, window, stream);
+    case 32: return launch_f32<32, kCap>(q, k, v, o, b, h, kvh, s, causal, window, cap, st);
+    case 64: return launch_f32<64, kCap>(q, k, v, o, b, h, kvh, s, causal, window, cap, st);
+    case 128: return launch_f32<128, kCap>(q, k, v, o, b, h, kvh, s, causal, window, cap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <bool kCap>
 int dispatch_bf16(int d, const void* q, const void* k, const void* v, void* o, void* sched,
-                  int b, int h, int kvh, int s, int causal, int window, cudaStream_t stream) {
+                  int b, int h, int kvh, int s, int causal, int window, float cap,
+                  cudaStream_t st) {
   switch (d) {
-    case 32: return launch_wgmma<32>(q, k, v, o, sched, b, h, kvh, s, causal, window, stream);
-    case 64: return launch_wgmma<64>(q, k, v, o, sched, b, h, kvh, s, causal, window, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, sched, b, h, kvh, s, causal, window, stream);
+    case 32:
+      return launch_wgmma<32, kCap>(q, k, v, o, sched, b, h, kvh, s, causal, window, cap, st);
+    case 64:
+      return launch_wgmma<64, kCap>(q, k, v, o, sched, b, h, kvh, s, causal, window, cap, st);
+    case 128:
+      return launch_wgmma<128, kCap>(q, k, v, o, sched, b, h, kvh, s, causal, window, cap, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -907,18 +934,27 @@ int dispatch_bf16(int d, const void* q, const void* k, const void* v, void* o, v
 
 // dtype: 0 = float32, 1 = bfloat16. q/o (B, S, H, D); k/v (B, S, KVH, D).
 // sched: two int32 counters, 0 on entry and left 0 (bf16 only; one stream
-// at a time per device). Neither kernel's grid caps B*H at 65,535.
+// at a time per device). softcap > 0 caps the scaled logits (0: uncapped).
+// Neither kernel's grid caps B*H at 65,535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       void* sched, int b, int h, int kvh, int s, int d,
-                                      int causal, int window, int dtype, void* stream) {
+                                      int causal, int window, int dtype, float softcap,
+                                      void* stream) {
   if (b == 0 || h == 0 || s == 0) return static_cast<int>(cudaSuccess);
-  if (kvh <= 0 || h % kvh != 0 || window < 0 || static_cast<int64_t>(b) * h > 0x7fffffff)
+  if (kvh <= 0 || h % kvh != 0 || window < 0 || static_cast<int64_t>(b) * h > 0x7fffffff ||
+      !(softcap >= 0.f) || isinf(softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_f32(d, q, k, v, o, b, h, kvh, s, causal, window, st);
+  const bool cap = softcap > 0.f;
+  if (dtype == 0)
+    return cap ? dispatch_f32<true>(d, q, k, v, o, b, h, kvh, s, causal, window, softcap, st)
+               : dispatch_f32<false>(d, q, k, v, o, b, h, kvh, s, causal, window, softcap, st);
   if (dtype == 1) {
     if (sched == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_bf16(d, q, k, v, o, sched, b, h, kvh, s, causal, window, st);
+    return cap ? dispatch_bf16<true>(d, q, k, v, o, sched, b, h, kvh, s, causal, window,
+                                     softcap, st)
+               : dispatch_bf16<false>(d, q, k, v, o, sched, b, h, kvh, s, causal, window,
+                                      softcap, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,7 +2,9 @@
 
 The CPU path of the wrappers and the yardstick the CUDA kernel is held to
 on the card: naive full-matrix attention, f32 softmax, output in
-``q.dtype``.
+``q.dtype``. ``softcap > 0`` caps the scaled f32 logits at ``softcap *
+tanh(s / softcap)`` before the mask, where the reference's attention
+applies ``logit_softcap`` (``repro/models/attention.py:64-67``).
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ import torch
 __all__ = ["attention_gqa_ref", "attention_ref"]
 
 
-def attention_ref(q, k, v, *, causal=True, window=0):
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q/k/v: (BH, S, D). Masked logits at -1e30; a fully masked row
     (possible with a window and no causal mask) gives zeros, like the
     kernel."""
     s, d = q.shape[1], q.shape[2]
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d**-0.5)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -31,7 +35,7 @@ def attention_ref(q, k, v, *, causal=True, window=0):
     return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
 
 
-def attention_gqa_ref(q, k, v, *, causal=True, window=0):
+def attention_gqa_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     """(B, S, H, D) x (B, S, KVH, D) -> (B, S, H, D): K/V expanded over each
     kv head's query group (``repeat_interleave``, as ``jnp.repeat``), heads
     folded into the batch, :func:`attention_ref`, unfolded."""
@@ -43,5 +47,6 @@ def attention_gqa_ref(q, k, v, *, causal=True, window=0):
     def fold(t):
         return t.transpose(1, 2).reshape(b * h, s, d)
 
-    out = attention_ref(fold(q), fold(k), fold(v), causal=causal, window=window)
+    out = attention_ref(fold(q), fold(k), fold(v), causal=causal, window=window,
+                        softcap=softcap)
     return out.reshape(b, h, s, d).transpose(1, 2)

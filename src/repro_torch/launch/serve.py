@@ -18,7 +18,11 @@ error, never a silent CPU run. The prompt goes through ``build_prefill_step``
 the ssd_scan kernel, the K/V sized into a decode cache of ``prompt_len +
 new_tokens`` slots), then each new token through ``build_decode_step``
 (attention in the decode-attention kernel, the cache and recurrent states
-updated in place; a MoE layer routes each token through its experts).
+updated in place; a MoE layer routes each token through its experts). On
+the card decode is one CUDA graph replay a token, captured at the first
+step, the counterpart of the reference's ``jax.jit(..., donate_argnums=1)``;
+a line says whether decode was captured and how many device operations
+the graph holds.
 Tokens are greedy (``argmax``). A hybrid prompt must be at most
 ``ssm_chunk`` (256) tokens or a multiple of it, and an xLSTM prompt at
 most 256 tokens or a multiple of 256 (the mLSTM chunk), the reference's
@@ -99,7 +103,8 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     position ``pos0 + t`` and predicts token t + 1), ``prefill_s``,
     ``decode_s`` (all decode steps), ``decode_tok_s`` and
     ``steady_decode_tok_s`` (steps 2+, None with fewer than two steps),
-    and the ``model``.
+    ``decode_graph`` (``captured``, and the graph's device operations by
+    kind, ``nodes``, when it was), and the ``model``.
     """
     if args.new_tokens < 1 or args.prompt_len < 1 or args.batch < 1:
         raise ValueError("--batch, --prompt-len and --new-tokens must be >= 1")
@@ -145,8 +150,8 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
         logits, cache = decode(cache, tok, pos0 + t)
         tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
         out.append(tok)
-        if t in keep:
-            kept[t] = logits[:, 0].float()
+        if t in keep:  # a copy: a graph's next replay overwrites its logits
+            kept[t] = logits[:, 0].to(torch.float32, copy=True)
         if t in keep_st:
             states[t] = _recurrent(model, cache)
         if t == 0:
@@ -157,6 +162,12 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
     decode_s = t_end - t0
     steps = args.new_tokens - 1
     tokens = torch.cat(out, dim=1).cpu()
+    graph = {"captured": decode.captured, "nodes": getattr(decode, "nodes", {})}
+    if graph["captured"]:
+        print(f"decode: one CUDA graph a step, captured at step 0; it holds "
+              f"{graph['nodes'].get('total', 0):,d} device operations ({graph['nodes']})")
+    else:
+        print(f"decode: eager, op by op, on {device}")
     summary = dict(
         prompts=prompts, tokens=tokens, extra=extra, pos0=pos0,
         prefill_logits=prefill_logits, logits=kept,
@@ -165,7 +176,7 @@ def serve(args: argparse.Namespace, *, keep_logits=(), keep_states=()) -> dict:
         decode_tok_s=steps * args.batch / decode_s if steps else None,
         steady_decode_tok_s=((steps - 1) * args.batch / (t_end - t_step1)
                              if steps > 1 else None),
-        model=model, max_len=max_len,
+        model=model, max_len=max_len, decode_graph=graph,
     )
     if steps:
         print(f"decoded {steps} steps x {args.batch} in {decode_s:.3f}s "

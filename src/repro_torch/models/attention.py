@@ -10,7 +10,11 @@ GQA expand as ``repeat_interleave`` (``jnp.repeat``).
 Serving goes through the two attention kernels. Prefill (``want_cache``)
 is a causal forward with no gradient, so it calls ``flash_attention_gqa``;
 one-token decode calls ``decode_attention`` against the KV cache, which it
-updates in place (the reference donates it). Training keeps the plain
+updates in place (the reference donates it). Both pass ``logit_softcap``
+to the kernel, which caps the scaled logits where the reference's jnp
+does. Decode takes its position as a 0-d int32 tensor on the model's
+device and reads nothing back to the host, so a CUDA graph can capture
+it (``train/train_step.py``). Training keeps the plain
 paths: the flash kernel has no backward and refuses inputs that require
 grad. Above ``attn_dense_threshold`` a config with ``attn_shard="seq"``
 (phi3, llava) trains through ``_chunked_attention_vecq``, the others
@@ -31,6 +35,7 @@ __all__ = [
     "decode_attention_block",
     "dequantize_kv",
     "init_attention",
+    "position",
     "quantize_kv",
     "slot_validity",
 ]
@@ -198,14 +203,6 @@ def _per_shard(fn, q, k, v, cfg):
                      [(q, same), (k, same), (v, same)], [same])
 
 
-def _no_softcap(cfg) -> None:
-    if cfg.logit_softcap:
-        raise NotImplementedError(
-            f"{cfg.name}: logit_softcap is set, and the attention kernels have no "
-            "softcap (no registered config sets one)"
-        )
-
-
 def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     """Full-sequence attention (train / prefill). Returns (out, (k, v)).
 
@@ -221,8 +218,8 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     k = apply_rope(k, sin, cos)
     kv = (k, v)
     if want_cache:
-        _no_softcap(cfg)
-        out = flash_attention_gqa(q, k, v, causal=cfg.causal, window=cfg.window)
+        out = flash_attention_gqa(q, k, v, causal=cfg.causal, window=cfg.window,
+                                  softcap=cfg.logit_softcap)
         out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
         return out, kv
     k = _expand_kv(k, cfg)
@@ -256,12 +253,26 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale.float()).to(dtype)
 
 
-def slot_validity(cache_pos: int, s_c: int, window: int, device) -> torch.Tensor:
+def position(cache_pos, device) -> torch.Tensor:
+    """``cache_pos`` as a 0-d int32 tensor on ``device``: a tensor is
+    moved (a no-op when it lies there), a Python int is filled in on the
+    device (a fill, not a copy from pageable host memory, which would wait
+    for the card)."""
+    if isinstance(cache_pos, torch.Tensor):
+        if cache_pos.ndim:
+            raise ValueError(f"cache_pos must be 0-d, got shape {tuple(cache_pos.shape)}")
+        return cache_pos.to(device=device, dtype=torch.int32)
+    return torch.full((), cache_pos, dtype=torch.int32, device=device)
+
+
+def slot_validity(cache_pos, s_c: int, window: int, device) -> torch.Tensor:
     """(S_c,) bool: slot ``j`` holds absolute position ``cache_pos -
     ((cache_pos - j) mod S_c)``; valid when that is >= 0 and, with a
-    window, inside it. ``torch.remainder`` takes the divisor's sign, as
+    window, inside it. ``cache_pos`` is a 0-d int tensor on ``device`` or
+    a Python int; ``torch.remainder`` takes the divisor's sign, as
     ``jnp.mod`` does."""
-    j = torch.arange(s_c, device=device)
+    cache_pos = position(cache_pos, device)
+    j = torch.arange(s_c, device=device, dtype=torch.int32)
     slot_pos = cache_pos - torch.remainder(cache_pos - j, s_c)
     valid = slot_pos >= 0
     if window:
@@ -269,14 +280,17 @@ def slot_validity(cache_pos: int, s_c: int, window: int, device) -> torch.Tensor
     return valid
 
 
-def decode_attention_block(p, x, cache_k, cache_v, cache_pos: int, cfg,
+def decode_attention_block(p, x, cache_k, cache_v, cache_pos, cfg,
                            k_scale=None, v_scale=None):
     """One-token decode against a (possibly rotating-window) KV cache.
 
     x: (B, 1, d); cache_k/v: (B, S_c, KVH, D); ``cache_pos`` the absolute
-    position of this token. Writes this token's K/V into slot ``cache_pos
-    % S_c`` of the cache **in place** and returns the block output (B, 1,
-    d). Keys are stored RoPE'd at absolute positions, so a rotating buffer
+    position of this token, a 0-d int32 tensor on the model's device (a
+    Python int is made one). Writes this token's K/V into slot
+    ``cache_pos mod S_c`` of the cache **in place**, an indexed write on
+    the device as the reference's ``dynamic_update_slice_in_dim``, and
+    returns the block output (B, 1, d). Nothing is read back to the host.
+    Keys are stored RoPE'd at absolute positions, so a rotating buffer
     (``S_c == window``) needs no re-rotation.
 
     With ``cfg.kv_cache_dtype == "int8"`` the cache is int8 with bf16
@@ -284,28 +298,28 @@ def decode_attention_block(p, x, cache_k, cache_v, cache_pos: int, cfg,
     in place too; the cache is dequantized in plain PyTorch before the
     kernel, as the reference does.
     """
-    _no_softcap(cfg)
     b = x.shape[0]
     hd = cfg.head_dim_
     s_c = cache_k.shape[1]
+    cache_pos = position(cache_pos, x.device)
     q, k, v = _project_qkv(p, x, cfg)
-    pos = torch.full((b, 1), cache_pos, dtype=torch.int32, device=x.device)
-    sin, cos = make_rope(pos, hd, cfg.rope_theta)
+    sin, cos = make_rope(cache_pos.expand(b, 1), hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    slot = cache_pos % s_c
+    slot = torch.remainder(cache_pos, s_c).long().view(1)
     if cfg.kv_cache_dtype == "int8":
-        kq, ks = quantize_kv(k[:, 0])
-        vq, vs = quantize_kv(v[:, 0])
-        cache_k[:, slot], k_scale[:, slot] = kq, ks
-        cache_v[:, slot], v_scale[:, slot] = vq, vs
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for cache, new in ((cache_k, kq), (k_scale, ks), (cache_v, vq), (v_scale, vs)):
+            cache.index_copy_(1, slot, new)
         k_eff = dequantize_kv(cache_k, k_scale, x.dtype)
         v_eff = dequantize_kv(cache_v, v_scale, x.dtype)
     else:
-        cache_k[:, slot] = k[:, 0]
-        cache_v[:, slot] = v[:, 0]
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
         k_eff, v_eff = cache_k, cache_v
     valid = slot_validity(cache_pos, s_c, cfg.window, x.device)
     mask = valid[None, :].expand(b, s_c).contiguous()
-    out = decode_attention(q[:, 0].contiguous(), k_eff, v_eff, mask)  # (B, H, D)
+    out = decode_attention(q[:, 0].contiguous(), k_eff, v_eff, mask,
+                           softcap=cfg.logit_softcap)  # (B, H, D)
     return out.reshape(b, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]

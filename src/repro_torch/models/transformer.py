@@ -71,7 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from ..parallel.axes import shard
-from .attention import attention_block, decode_attention_block, init_attention
+from .attention import attention_block, decode_attention_block, init_attention, position
 from .common import flatten_tree, normal_init, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
@@ -239,10 +239,11 @@ def _train_block(kind, p, x, cfg):
     return x, aux
 
 
-def _decode_block(kind, p, x, cache, cache_pos: int, cfg):
+def _decode_block(kind, p, x, cache, cache_pos, cfg):
     """One token through one block against its cache entry (updated in
-    place). Returns x. An ``attn_moe`` layer routes the token through
-    ``moe_block`` and drops its aux, as the reference does."""
+    place); ``cache_pos`` a 0-d int32 tensor on the device. Returns x. An
+    ``attn_moe`` layer routes the token through ``moe_block`` and drops its
+    aux, as the reference does."""
     eps = cfg.norm_eps
     if kind in ATTN_KINDS:
         x = x + decode_attention_block(
@@ -565,11 +566,15 @@ class Model(nn.Module):
             for spec in self.cache_specs(batch, max_len, dtype)
         ]
 
-    def decode_step(self, caches: list[dict], tokens, cache_pos: int):
+    def decode_step(self, caches: list[dict], tokens, cache_pos):
         """One token for the whole batch. ``tokens`` (B, 1) int; ``cache_pos``
-        the absolute position of that token. Updates ``caches`` in place
-        and returns ``(logits (B, 1, V), caches)``."""
+        the absolute position of that token, a 0-d int32 tensor on the
+        model's device (a Python int is made one), as the reference's traced
+        ``jnp.int32``. Updates ``caches`` in place and returns ``(logits (B,
+        1, V), caches)``. Reads nothing back to the host, so one step can be
+        captured in a CUDA graph (``train_step.build_decode_step``)."""
         cfg = self.cfg
+        cache_pos = position(cache_pos, self.device)
         # a port-only site, as forward's: a vocab-sharded lookup resolved here
         x = shard(self._embed_tokens(tokens), "batch", None, "embed_act")
         for (kind, _), seg, cache in zip(cfg.segments(), self.segments, caches):

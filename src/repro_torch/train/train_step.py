@@ -18,20 +18,35 @@ the Mamba-2 scan in the ssd_scan kernel) and sizes its K/V into the decode
 cache; decode runs one token (attention in the decode kernel) and updates
 that cache, K/V and recurrent states alike, in place, where the reference
 donates it. Both run under ``torch.inference_mode()``.
+
+The reference jits all three steps (``jax.jit``; decode with the cache
+donated, ``donate_argnums=1``, and the position traced). The port
+compiles only decode: on the card each token is one replay of a CUDA
+graph that captured one step (:class:`GraphDecode`), the position a
+device tensor, the caches the graph's own static state, updated in place.
+Decode is a few hundred small kernels a token, and run op by op from
+Python the card waited on the host most of the time. The train step and
+the prefill stay eager: each is a handful of large kernels, whose launch
+cost the card hides (training is idle well under 1% of a step).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..configs.base import RunConfig
+from ..kernels.common import graph_nodes, kernel_wrappers
+from ..models.attention import position, quantize_kv
 from ..models.common import flatten_tree
-from ..models.attention import quantize_kv
 from ..models.transformer import ATTN_KINDS, Model
 from ..optim.optimizers import Optimizer, clip_by_global_norm
+from ..parallel.axes import current_ctx
 from .losses import lm_loss
 
-__all__ = ["build_decode_step", "build_prefill_step", "build_train_step", "init_train_state"]
+__all__ = ["GraphDecode", "build_decode_step", "build_prefill_step", "build_train_step",
+           "init_train_state"]
 
 def init_train_state(model: Model, optimizer: Optimizer, seed: int = 0) -> dict:
     """Initialise ``model``'s parameters from ``seed`` and the optimizer
@@ -159,12 +174,109 @@ def build_prefill_step(model: Model, max_len: int):
     return prefill
 
 
-def build_decode_step(model: Model):
-    """``decode(caches, tokens (B, 1), cache_pos) -> (logits (B, 1, V),
-    caches)``, the caches updated in place."""
+def _cache_ptrs(caches) -> list[int]:
+    return [t.data_ptr() for entry in caches for t in entry.values()]
+
+
+class GraphDecode:
+    """The decode step as one CUDA graph a token.
+
+    The first call runs the step eagerly at its real position, on a side
+    stream, and returns its logits: that is the warm-up that loads the
+    kernels' libraries and sizes their counters, which may not be
+    allocated under capture. It then captures one step into a
+    ``torch.cuda.CUDAGraph`` (capture runs nothing) that reads two static
+    buffers, the tokens (B, 1) int32 and the position, a 0-d int32 tensor,
+    and writes static logits; the caches it captured are its state and are
+    updated in place by every replay. Each later call copies ``tokens``
+    and ``cache_pos`` into the static buffers and replays, and returns the
+    static logits, which the next call overwrites: a caller that keeps
+    them copies them.
+
+    The step belongs to the caches it captured: a call with other cache
+    tensors raises. Python runs only at capture, so each kernel wrapper's
+    ``launches`` gains at every replay what capture added (capture itself
+    launches nothing). ``nodes`` counts the device operations the graph
+    holds, by kind (``kernels.common.graph_nodes``).
+    """
+
+    def __init__(self, model: Model):
+        self.model = model
+        self.graph = None
+        self.nodes: dict = {}
+
+    @property
+    def captured(self) -> bool:
+        """Whether the graph has been captured (at the first call)."""
+        return self.graph is not None
 
     @torch.inference_mode()
-    def decode(caches, tokens, cache_pos: int):
+    def __call__(self, caches, tokens, cache_pos):
+        if self.graph is None:
+            return self._capture(caches, tokens, cache_pos)
+        if _cache_ptrs(caches) != self._ptrs:
+            raise ValueError("this decode step was captured on other caches; build a new "
+                             "step with build_decode_step for these")
+        self.tokens.copy_(tokens)
+        if isinstance(cache_pos, torch.Tensor):
+            self.pos.copy_(cache_pos)
+        else:
+            self.pos.fill_(cache_pos)
+        self.graph.replay()
+        for wrapper, n in self._launches:
+            wrapper.launches += n
+        return self.logits, caches
+
+    def _capture(self, caches, tokens, cache_pos):
+        model, device = self.model, self.model.device
+        self.tokens = torch.empty(tokens.shape, dtype=torch.int32, device=device)
+        self.tokens.copy_(tokens)
+        self.pos = position(cache_pos, device).clone()
+        here = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            logits, _ = model.decode_step(caches, self.tokens, self.pos)
+        here.wait_stream(side)
+        logits.record_stream(here)
+        wrappers = list(kernel_wrappers().values())
+        before = [w.launches for w in wrappers]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            self.logits, _ = model.decode_step(caches, self.tokens, self.pos)
+        graph.instantiate()
+        self._launches = [(w, w.launches - n) for w, n in zip(wrappers, before)
+                          if w.launches != n]
+        for w, n in zip(wrappers, before):
+            w.launches = n
+        self.nodes = graph_nodes(graph)
+        self._ptrs = _cache_ptrs(caches)
+        self.graph = graph
+        return logits, caches
+
+
+def _eager_decode(model: Model):
+    @torch.inference_mode()
+    def decode(caches, tokens, cache_pos):
         return model.decode_step(caches, tokens, cache_pos)
 
+    decode.captured = False
     return decode
+
+
+def build_decode_step(model: Model):
+    """``decode(caches, tokens (B, 1), cache_pos) -> (logits (B, 1, V),
+    caches)``, the caches updated in place; ``cache_pos`` a 0-d int32
+    tensor or a Python int.
+
+    On a CUDA model this is a :class:`GraphDecode`, unless a sharding
+    context is installed whose mesh spans more than one device (decode's
+    DTensor ops and collectives then run eagerly); on the CPU (the tests)
+    and the meta device the step runs eagerly. The choice is made here,
+    once, from those two facts. ``decode.captured`` is False for the eager
+    step, and for the graph step says whether its first call has captured.
+    """
+    ctx = current_ctx()
+    if model.device.type == "cuda" and (ctx is None or math.prod(ctx.mesh.shape.values()) == 1):
+        return GraphDecode(model)
+    return _eager_decode(model)

@@ -93,6 +93,50 @@ def test_edge_cases_match_jax_kernel(name, shape, dtype):
     assert torch.equal(want[0].float(), torch.zeros_like(want[0].float()))
 
 
+def _reference_decode(q, ck, cv, mask, cap):
+    """The reference decode's attention in jnp (``repro/models/attention.py``
+    ``decode_attention_block``, lines 276-289): f32 scores scaled by
+    D^-0.5, capped at ``cap * tanh(s / cap)``, masked at NEG_INF, softmax,
+    probabilities in the cache dtype for the PV product."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.attention import NEG_INF
+
+    b, h, d = q.shape
+    kvh = ck.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, d)
+    logits = jnp.einsum("bqkgd,bskd->bkgqs", qg, ck).astype(jnp.float32) * d**-0.5
+    logits = logits[:, :, :, 0]
+    logits = cap * jnp.tanh(logits / cap)
+    logits = jnp.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = jax.nn.softmax(logits, axis=-1).astype(cv.dtype)
+    return jnp.einsum("bkgs,bskd->bkgd", probs, cv).reshape(b, h, d)
+
+
+#: As in test_torch_flash_attention.py: q and k ~ N(0, 4^2) overrun it.
+SOFTCAP = 20.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 8, 2, 40, 64), (2, 4, 4, 96, 32), (3, 14, 2, 33, 32)],
+                         ids=["g4", "g1", "g7"])
+def test_softcap_matches_the_reference_formula(shape, dtype):
+    """The plain version with ``softcap`` against the reference decode's
+    jnp formula on the same inputs (every row keeps a valid slot, where
+    the reference's softmax and the kernel's zeros would differ)."""
+    b, h, kvh, s, d = shape
+    q, ck, cv, mask = _edge_inputs(b, h, kvh, s, d, dtype, seed=4)
+    mask = mask.at[0, :3].set(True)
+    q, ck = q * 4, ck * 4
+    want = from_numpy(np.asarray(_reference_decode(q, ck, cv, mask, SOFTCAP)))
+    args = _to_torch((q, ck, cv, mask))
+    got = decode_attention(*args, softcap=SOFTCAP)
+    tol = parity.KERNELS["decode_attention"]["tols"][dtype]
+    assert parity.max_err(got, want) <= tol
+    assert parity.max_err(decode_attention(*args), want) > 10 * tol
+
+
 def test_checks_dtype_shape_contiguity_and_grad():
     q = torch.randn(2, 8, 32)
     ck = torch.randn(2, 16, 2, 32)
@@ -109,6 +153,8 @@ def test_checks_dtype_shape_contiguity_and_grad():
         decode_attention(q, ck, ck, mask[:, :8].contiguous())
     with pytest.raises(ValueError, match="multiple"):
         decode_attention(torch.randn(2, 7, 32), ck, ck, mask)
+    with pytest.raises(ValueError, match="softcap"):
+        decode_attention(q, ck, ck, mask, softcap=-1.0)
     with pytest.raises(RuntimeError, match="no backward"):
         decode_attention(q.requires_grad_(), ck, ck, mask)
 
@@ -206,6 +252,17 @@ def test_cuda_kernel_matches_plain_version():
                 name = f"G={g} {(b, kvh, s, d)} {dtype}"
                 assert parity.max_err(got, want) <= tol, name
                 assert not got[0].any(), name
+    # The softcap instantiations at the serving head dims, scores overrunning the cap.
+    for g, d in ((1, 64), (7, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = (torch.randn(4, 2 * g, d, generator=gen, device="cuda") * 4).to(dtype)
+            ck = (torch.randn(4, 1000, 2, d, generator=gen, device="cuda") * 4).to(dtype)
+            cv = torch.randn(4, 1000, 2, d, generator=gen, device="cuda").to(dtype)
+            mask = _ring_mask(4, 1000, 900, 990)
+            got = decode_attention(q, ck, cv, mask, softcap=50.0)
+            want = decode_attention_plain(q, ck, cv, mask, softcap=50.0)
+            tol = parity.KERNELS["decode_attention"]["tols"][str(dtype).split(".")[1]]
+            assert parity.max_err(got, want) <= tol, f"softcap G={g} D={d} {dtype}"
 
 
 def test_cuda_split_counters_reset_across_calls_and_graph_replays():

@@ -11,6 +11,8 @@ Tolerance: the registry's scale-normalised max error, f32 2e-5 and bf16
 keeps it in f32).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -97,6 +99,48 @@ def test_gqa_wrapper_matches_jax(window, dtype):
     got = flash_attention_gqa(*_to_torch((q, k, v)), causal=True, window=window)
     assert got.shape == (b, s, h, d)
     assert parity.max_err(got, want) <= TOLS[dtype]
+
+
+#: A cap that the drawn logits overrun: q and k ~ N(0, 4^2) at D = 32 give
+#: scaled logits of standard deviation 16, so tanh's bend decides the
+#: softmax (an uncapped run misses by far more than the tolerance).
+SOFTCAP = 20.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,g", [(True, 0, 1), (True, 16, 4), (False, 0, 2),
+                                             (False, 12, 1)])
+def test_softcap_matches_the_reference_formula(causal, window, g, dtype):
+    """The GQA wrapper's plain version with ``softcap`` against the
+    reference's jnp attention (``repro.models.attention._dense_attention``:
+    ``cap * tanh(s / cap)`` on the f32 scaled logits, then the mask), on
+    K/V expanded as the reference's ``jnp.repeat`` does."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from repro.models.attention import _dense_attention
+
+    rng = np.random.default_rng(10)
+    b, s, kvh, d = 2, 40, 2, 32
+    q = _normal(rng, (b, s, kvh * g, d), dtype) * 4
+    k = _normal(rng, (b, s, kvh, d), dtype) * 4
+    v = _normal(rng, (b, s, kvh, d), dtype)
+    cfg = SimpleNamespace(head_dim_=d, logit_softcap=SOFTCAP, causal=causal, window=window)
+    want = from_numpy(np.asarray(_dense_attention(q, jnp.repeat(k, g, axis=2),
+                                                  jnp.repeat(v, g, axis=2), cfg)))
+    got = flash_attention_gqa(*_to_torch((q, k, v)), causal=causal, window=window,
+                              softcap=SOFTCAP)
+    assert parity.max_err(got, want) <= TOLS[dtype]
+    uncapped = flash_attention_gqa(*_to_torch((q, k, v)), causal=causal, window=window)
+    assert parity.max_err(uncapped, want) > 10 * TOLS[dtype]
+
+
+def test_softcap_must_be_finite_and_not_negative():
+    q = torch.randn(2, 16, 32)
+    for bad in (-1.0, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="softcap"):
+            flash_attention(q, q, q, softcap=bad)
 
 
 def test_window_of_one_attends_to_the_diagonal_only():
@@ -188,6 +232,16 @@ def test_cuda_kernel_matches_plain_version():
             want = attention_gqa_ref(q, k, v, causal=causal, window=window)
             name = f"S={s} window={window} causal={causal} D={d} G={g} {dtype}"
             assert torch.isfinite(got.float()).all(), name
+            assert parity.max_err(got, want) <= TOLS[str(dtype).split(".")[1]], name
+    # The softcap instantiations at the serving head dims, logits overrunning the cap.
+    for (d, g), window in itertools.product(((64, 1), (128, 7)), (0, 129)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = (torch.randn(2, 300, 2 * g, d, generator=gen, device="cuda") * 4).to(dtype)
+            k = (torch.randn(2, 300, 2, d, generator=gen, device="cuda") * 4).to(dtype)
+            v = torch.randn(2, 300, 2, d, generator=gen, device="cuda").to(dtype)
+            got = flash_attention_gqa(q, k, v, causal=True, window=window, softcap=50.0)
+            want = attention_gqa_ref(q, k, v, causal=True, window=window, softcap=50.0)
+            name = f"softcap D={d} G={g} window={window} {dtype}"
             assert parity.max_err(got, want) <= TOLS[str(dtype).split(".")[1]], name
 
 

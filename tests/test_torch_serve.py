@@ -3,11 +3,12 @@
 Reduced tinyllama (2 layers, d_model 128, 4/2 heads, head_dim 32, vocab
 512) in float32 on both sides, the same weights moved across with the
 bridge, the same numpy prompts: ``build_prefill_step`` then greedy
-``build_decode_step``, in three variants (full cache; a 16-slot rotating
-window that the 24-token prompt overfills; an int8 cache). Reduced zamba2
-(4 Mamba-2 blocks, the shared attention block at 2 sites) the same way,
-with a full cache and an overfilled window, every cache leaf (``ssm``,
-``conv``, ``k``, ``v``) compared. Tolerance:
+``build_decode_step``, in four variants (full cache; a 16-slot rotating
+window that the 24-token prompt overfills; an int8 cache; logits capped
+at ``logit_softcap`` 50). Reduced zamba2 (4 Mamba-2 blocks, the shared
+attention block at 2 sites) the same way, with a full cache, an
+overfilled window and the softcap, every cache leaf (``ssm``, ``conv``,
+``k``, ``v``) compared. Tolerance:
 scale-normalised max error (max |port - jax| / max |jax|) <= 1e-5 for
 logits and float cache leaves, which f32 reassociation stays far below at
 these widths, and greedy tokens equal.
@@ -83,6 +84,9 @@ VARIANTS = {
     "full": ({}, 16, 32),
     "window": ({"window": 16}, 24, 40),
     "int8": ({"kv_cache_dtype": "int8"}, 16, 32),
+    # Gemma 2's attn_logit_softcapping (arXiv:2408.00118, Table 1): both
+    # attention kernels cap the logits, as the reference's jnp does.
+    "softcap": ({"logit_softcap": 50.0}, 16, 32),
 }
 
 
@@ -157,23 +161,11 @@ def test_prefill_and_decode_match_jax(variant):
     _prefill_and_decode_match_jax(cfg, prompt_len, max_len)
 
 
-def test_softcap_serving_refused():
-    """Neither attention kernel has a softcap, so prefill and decode refuse
-    a config that sets one instead of serving it through plain attention."""
-    cfg = reduced(get_config("tinyllama-1.1b"))
-    capped = build_model(dataclasses.replace(cfg, logit_softcap=5.0), device="cpu").init(0)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="logit_softcap"):
-        build_prefill_step(capped, 16)({"tokens": tokens})
-    _, cache = build_prefill_step(build_model(cfg, device="cpu").init(0), 16)({"tokens": tokens})
-    with pytest.raises(NotImplementedError, match="logit_softcap"):
-        build_decode_step(capped)(cache, tokens[:, :1], 8)
-
-
 HYBRID_VARIANTS = {
     # name: (config changes, prompt length, max_len)
     "full": ({}, 16, 32),
     "window": ({"window": 16}, 24, 40),
+    "softcap": ({"logit_softcap": 50.0}, 16, 32),
 }
 
 
