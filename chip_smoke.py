@@ -174,16 +174,52 @@ and each of which prints its wall time:
    prints FLOPs per device, collective bytes by kind, memory and the
    H100 roofline row of ``repro_torch.launch.roofline``.
 
+14. the examples: ``examples/train_lm_torch.py --preset 100m --device-path
+   gather --ckpt-every 20`` (12 layers, d_model 768, 12/4 heads of 64, d_ff
+   3072, vocab 32000, f32, B=8, S=512) for 40 steps in a fresh workdir,
+   then the same command there with ``--steps 60`` (on the first run's
+   chunk store, handed to ``train``), which must print ``resumed from step
+   40`` and ``done: 60 steps``. Each run is checked as phase 4's is (one
+   gather launch a staged batch, every staged batch equal to the host
+   stream of a fresh loader on the store, every loss finite, printed ones
+   included, the first near ln(vocab)), and the resumed run's first loss,
+   on the same first batch, must lie below the init's. Prints the steady
+   tokens/s (and without the checkpoint saves) and the stager's overlap
+   fraction. Then ``examples/serve_decode_torch.py`` at its defaults
+   (reduced zamba2-1.2b, f32, B=4, a 48-token prompt, 24 new tokens), a
+   functional check (its printed rate, at this size the first call's
+   warm-up and capture, is no measurement): the decode step captured, flash
+   once per attention site and ssd_scan once per Mamba-2 block in the
+   prefill, decode attention once per site and decode step (2, 4 and 2 x
+   23 on the reduced layout), and the ids equal to ``generate`` on the CPU
+   with the same weights;
+15. convergence parity, ``benchmarks/convergence.py``'s recipe (the paper's
+   Fig. 15 and Table 7) on the port: 1536 records of mean length 72 at
+   vocab 211, chunks of 8, 3 nodes, B=24, S=96, one init (seed 7) for
+   every run. Each cell trains Redox at 96 memory slots and at 32 (another
+   chunk mapping), through ``epoch_device`` and the gather (launches equal
+   to the staged batches, every fed batch equal to the host stream of a
+   fresh loader on the same store), and an exact global shuffle staged
+   plainly (no gather launch), and fails unless each Redox run's tail-mean loss (the
+   last third of the curve) lies within 0.15 of the exact shuffle's, after
+   printing a loss row every sixth of the run. 15a: the reference's model,
+   reduced tinyllama cut to 2 layers, AdamW 3e-3, 120 steps. 15b: the 100m
+   preset's widths, 160 steps (2.5 epochs), AdamW 3e-4, with a fourth run,
+   an exact shuffle of another sampler seed, whose gap is printed as the
+   yardstick of two honest shuffles. 15c: 15b's first Redox run profiles
+   its steps 3-6 (idle share, device operations a step).
+
 Phase 6 also holds reduced llava-next-34b (serving, with patches),
 hubert-xlarge and phi3-medium-14b (through vecq) to the CPU in f32:
 logits and two Adafactor and two SGDM steps each. Phase 3 also holds
 both attention kernels at G = 7 and G = 4, D = 128, and times them at
 llava's shapes.
 
-The last twelve lines are the training path's numbers as JSON, the serving
-path's, the hybrid serving path's, the data-service path's, the MoE
+The last fourteen lines are the training path's numbers as JSON, the
+serving path's, the hybrid serving path's, the data-service path's, the MoE
 serving path's, the xLSTM serving path's, the VLM serving path's, the
 encoder training path's, the all-to-all MoE path's (with 13b and 13c),
+the examples' (phase 14), the convergence cells' (phase 15),
 the card's name and power limit, the kernel
 table as JSON (five kernels), and ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
 a directory without the port's sources.
@@ -198,6 +234,10 @@ side stream), and prints them as JSON last.
 
 runs phases 1-2, phase 3's attention kernels (the softcap cases and
 times included) and phases 5, 5b and 5c, and prints them as JSON last.
+
+    python3 chip_smoke.py --examples
+
+runs phases 1-2, 14 and 15 and prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -205,6 +245,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -354,6 +395,33 @@ DRYRUN_ARGS = ["--arch", "tinyllama-1.1b", "--shape", "train_4k", "--single-pod-
 AUTOTUNE_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
                  "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
                  "--autotune", "--steps", "3"]
+#: Phase 14: ``examples/train_lm_torch.py`` at its 100m preset through the
+#: CUDA gather with a checkpoint every 20 steps: 40 steps in a fresh
+#: workdir, then the same command there with ``--steps 60`` on the first
+#: run's chunk store, which must resume at 40.
+#: ``examples/serve_decode_torch.py`` runs at its defaults.
+EXAMPLE_TRAIN_ARGS = ["--preset", "100m", "--device-path", "gather", "--ckpt-every", "20"]
+EXAMPLE_TRAIN_STEPS = (40, 60)
+#: Phase 15: ``benchmarks/convergence.py``'s recipe (the paper's Fig. 15 and
+#: Table 7): the corpus, the Redox cluster and the batch grid, the two
+#: memory budgets (in slots) that give two chunk mappings, one init for
+#: every run, and the bound on the tail-mean losses' gaps.
+CONV_DOCS, CONV_VOCAB, CONV_MEAN_LEN, CONV_CHUNK = 1536, 211, 72, 8
+CONV_NODES, CONV_REMOTE_LIMIT, CONV_SAMPLER_SEED = 3, 64_000, 11
+CONV_BATCH, CONV_SEQ = 24, 96
+CONV_SLOTS, CONV_SMALL_SLOTS = 96, 32
+CONV_INIT_SEED = 7
+CONV_TAIL_TOL = 0.15
+#: 15b's second exact shuffle, the yardstick of how far two honest
+#: shuffles' tail means lie apart.
+CONV_YARDSTICK_SEED = 12
+#: 15b's steps: 2.5 of the recipe's 3 epochs of 64 steps, cut for time.
+#: Its steps are host-bound (15c: the card idle 0.47-0.70 of a step on an
+#: H100), 0.10-0.17 s each by machine, so four runs of 192 steps take
+#: 77-131 s of the 150 s meant for phases 14-15 together. At 160 the tail
+#: (steps 108-159) still ends on the plateau that a 192-step run reached
+#: by step 128 (loss 2.60-2.63 in every run).
+CONV_WIDE_STEPS = 160
 
 
 class PhaseClock:
@@ -3029,6 +3097,416 @@ def dryrun_cell() -> dict:
     return {"wall_s": wall, "cell": row, "roofline": an}
 
 
+# -------------------------------------------------------------- phase 14
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    path = HERE / "examples" / f"{name}.py"
+    if not path.is_file():
+        fail(f"no example at {path}")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class Tee(io.TextIOBase):
+    """A stdout that still prints and keeps a copy of what it printed."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        return self.copy.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def run_printing(fn, *args):
+    """``fn(*args)`` and what it printed."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn(*args)
+    return result, tee.copy.getvalue()
+
+
+def example_training() -> dict:
+    """``examples/train_lm_torch.py`` at EXAMPLE_TRAIN_ARGS in a fresh
+    workdir for EXAMPLE_TRAIN_STEPS[0] steps, then resumed there to
+    EXAMPLE_TRAIN_STEPS[1] on the first run's chunk store; each run checked
+    as phase 4's is (one gather launch a staged batch, every staged batch
+    equal to the host stream of a fresh loader on the store, finite losses,
+    printed ones included; the first near ln(vocab)), the second for its
+    resume from the first's last checkpoint (a lower loss than the init's
+    on the same first batch)."""
+    import re
+
+    import torch
+
+    example = load_example("train_lm_torch")
+    preset = EXAMPLE_TRAIN_ARGS[EXAMPLE_TRAIN_ARGS.index("--preset") + 1]
+    vocab = example.PRESETS[preset]["vocab_size"]
+    batch_tokens = example.PRESETS[preset]["batch"] * example.PRESETS[preset]["seq"]
+    first_steps, resumed_steps = EXAMPLE_TRAIN_STEPS
+    runs, store = [], None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as work:
+        for steps, expect in ((first_steps, None),
+                              (resumed_steps, f"resumed from step {first_steps}")):
+            argv = EXAMPLE_TRAIN_ARGS + ["--steps", str(steps), "--workdir", work]
+            print(f"$ python examples/train_lm_torch.py {' '.join(argv)}", flush=True)
+            args = example.parse_args(argv)
+            staged = []
+            torch.cuda.synchronize()
+            zero_launches()
+            summary, out = run_printing(
+                lambda: example.train(args, on_batch=lambda step, feed: staged.append(feed),
+                                      store=store))
+            launches = read_launches()
+            store = summary["store"]
+            stats = summary["device_stats"]
+            losses = summary["losses"]
+            printed = [float(x) for x in re.findall(r"^step +\d+ epoch \d+ loss (\S+)", out,
+                                                    re.MULTILINE)]
+            gathers = launches["chunk_gather_train"]
+            # The steady window (steps 2+) holds the checkpoint saves; the
+            # rate without them is the train step's own.
+            steady_tokens = (len(losses) - 1) * batch_tokens
+            steady_s = steady_tokens / summary["steady_tokens_per_s"]
+            no_ckpt = steady_tokens / (steady_s - summary["ckpt_s"])
+            print(f"launches {launches}; steady tokens/s {summary['steady_tokens_per_s']:.1f} "
+                  f"(whole run {summary['tokens_per_s']:.1f}; {no_ckpt:.1f} without the "
+                  f"{summary['ckpt_s']:.2f} s of checkpoint saves); overlap fraction "
+                  f"{stats.overlap_fraction:.4f}; {stats.steps} staged batches")
+            if gathers == 0 or gathers != stats.steps or gathers != stats.kernel_steps:
+                fail(f"kernel launches {gathers} != staged batches {stats.steps}")
+            if len(losses) != steps - summary["start"] or not printed or not all(
+                    math.isfinite(x) for x in losses + printed):
+                fail(f"expected {steps - summary['start']} finite losses, got {losses} "
+                     f"(printed {printed})")
+            if expect is not None and expect not in out:
+                fail(f"the second run did not print '{expect}'")
+            if f"done: {steps} steps" not in out:
+                fail(f"the run did not print 'done: {steps} steps'")
+            # Each run starts again at epoch 0's first batch.
+            _, host_loader = example.build_loader(store, preset, args.nodes)
+            hold_to_host_stream(f"the example's run to {steps}", staged,
+                                host_loader.epoch(0))
+            runs.append({"steps": steps, "start": summary["start"], "launches": gathers,
+                         "losses": losses, "printed_losses": printed,
+                         "tokens_per_s": summary["tokens_per_s"],
+                         "steady_tokens_per_s": summary["steady_tokens_per_s"],
+                         "ckpt_s": summary["ckpt_s"],
+                         "steady_tokens_per_s_without_ckpt": no_ckpt,
+                         "overlap_fraction": stats.overlap_fraction,
+                         "staged_batches": stats.steps})
+            del staged
+            torch.cuda.empty_cache()
+        store.close()
+    fresh, resumed = runs
+    if abs(fresh["losses"][0] - math.log(vocab)) > 2.0:
+        fail(f"first loss {fresh['losses'][0]} is not near ln({vocab}) at random init")
+    # The resumed run starts again at epoch 0's first batch, on the weights
+    # of step 40: a restore that kept the init would read the init's loss.
+    if not resumed["losses"][0] < fresh["losses"][0]:
+        fail(f"the resumed run's first loss {resumed['losses'][0]} is not below the init's "
+             f"{fresh['losses'][0]} on the same batch")
+    return {"args": EXAMPLE_TRAIN_ARGS, "steps": EXAMPLE_TRAIN_STEPS, "runs": runs}
+
+
+def hold_to_host_stream(what: str, staged: list, host) -> None:
+    """Fail unless every staged feed equals the host stream's batch of the
+    same step, key for key (tokens, targets, loss mask), exactly."""
+    n = 0
+    for i, (feed, ref) in enumerate(zip(staged, host)):
+        for k in ("tokens", "targets", "loss_mask"):
+            got = feed[k].cpu().numpy()
+            if got.shape != ref[k].shape or not (got == ref[k]).all():
+                fail(f"{what}: staged {k} of step {i} differs from the host stream")
+        n += 1
+    if n != len(staged):
+        fail(f"{what}: the host stream ended after {n} of {len(staged)} staged batches")
+    print(f"{what}: staged batches equal the host stream ({n} steps)")
+
+
+def example_serving() -> dict:
+    """``examples/serve_decode_torch.py`` at its defaults: the decode step
+    captured, flash once per attention site and ssd_scan once per Mamba-2
+    block in the prefill, decode attention once per site and decode step,
+    read off the reduced layout; its ids equal to ``generate`` on the CPU
+    with the same weights (f32, TF32 off)."""
+    import torch
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    example = load_example("serve_decode_torch")
+    args = example.build_parser().parse_args([])
+    cfg = reduced(ARCHS[args.arch])
+    sites = sum(count for kind, count in cfg.segments() if kind in ATTN_KINDS)
+    mamba = sum(count for kind, count in cfg.segments() if kind == "mamba2")
+    steps = args.new_tokens - 1
+    want = {"flash_attention": sites, "ssd_scan": mamba, "decode_attention": sites * steps}
+    print(f"$ python examples/serve_decode_torch.py ({args.arch} reduced: {mamba} Mamba-2 "
+          f"blocks, {sites} attention sites; {steps} decode steps)", flush=True)
+    torch.cuda.synchronize()
+    zero_launches()
+    summary, out = run_printing(example.main, [])
+    launches = read_launches()
+    print(f"launches {launches}, expected {want}; decode captured: {summary['captured']}")
+    if f"decoded {args.new_tokens} tokens/seq" not in out:
+        fail(f"the example did not print 'decoded {args.new_tokens} tokens/seq'")
+    if not summary["captured"]:
+        fail("the example's decode was not captured in a CUDA graph")
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times, expected {n}")
+    ids = summary["ids"]
+    if ids.shape != (args.batch, args.new_tokens) or not (
+            (ids >= 0) & (ids < cfg.vocab_size)).all():
+        fail(f"ids {tuple(ids.shape)} out of shape or range [0, {cfg.vocab_size})")
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(summary["model"].state_dict())
+    cpu_ids = example.generate(cpu_model, summary["prompts"], args.new_tokens,
+                               args.prompt_len + args.new_tokens)
+    print(f"ids equal to the CPU's on the same weights: {torch.equal(ids, cpu_ids)}")
+    if not torch.equal(ids, cpu_ids):
+        fail("the example's ids on the card differ from the CPU's on the same weights")
+    # A functional check: at 4 x 24 tokens on 4 small blocks the printed
+    # rate is the first call's warm-up and capture, not a decode rate.
+    return {"arch": args.arch, "launches": {k: launches[k] for k in want},
+            "captured": summary["captured"]}
+
+
+# -------------------------------------------------------------- phase 15
+def redox_loader(store):
+    """``benchmarks/convergence.py``'s Redox cluster and loader over
+    ``store``."""
+    from repro_torch.core import Cluster, EpochSampler, RedoxLoader
+
+    cluster = Cluster(store.plan, CONV_NODES, store=store, seed=2,
+                      remote_memory_limit_bytes=CONV_REMOTE_LIMIT)
+    sampler = EpochSampler(CONV_DOCS, CONV_NODES, seed=CONV_SAMPLER_SEED)
+    return RedoxLoader(cluster, sampler, batch_per_node=CONV_BATCH // CONV_NODES,
+                       seq_len=CONV_SEQ)
+
+
+def redox_batches(tmp, epochs: int, memory_slots: int, stager):
+    """``benchmarks/convergence.py``'s ``_redox_batches`` on the port, the
+    batches staged by ``stager`` through ``epoch_device`` (on the card,
+    assembled by ``chunk_gather_train``)."""
+    from repro_torch.data import SyntheticTokenDataset
+
+    ds = SyntheticTokenDataset(CONV_DOCS, CONV_VOCAB, mean_len=CONV_MEAN_LEN, seed=3)
+    store = ds.build_store(Path(tmp) / f"chunks_{memory_slots}", CONV_CHUNK,
+                           num_slots=memory_slots, seed=1)
+    loader = redox_loader(store)
+    for e in range(epochs):
+        yield from loader.epoch_device(e, stager)
+
+
+def redox_host_batches(tmp, epochs: int, memory_slots: int):
+    """The host stream of :func:`redox_batches`: a fresh loader on the
+    chunk store that :func:`redox_batches` built in ``tmp``."""
+    from repro_torch.core import ChunkStore
+
+    store = ChunkStore.open(Path(tmp) / f"chunks_{memory_slots}")
+    try:
+        loader = redox_loader(store)
+        for e in range(epochs):
+            yield from loader.epoch(e)
+    finally:
+        store.close()
+
+
+def exact_shuffle_batches(epochs: int, sampler_seed: int = CONV_SAMPLER_SEED):
+    """``benchmarks/convergence.py``'s ``_exact_shuffle_batches`` on the
+    port: an exact global shuffle of the same records, as numpy grids."""
+    from repro_torch.core import EpochSampler
+    from repro_torch.core.loader import _to_grid
+    from repro_torch.data import SyntheticTokenDataset
+
+    ds = SyntheticTokenDataset(CONV_DOCS, CONV_VOCAB, mean_len=CONV_MEAN_LEN, seed=3)
+    sampler = EpochSampler(CONV_DOCS, 1, seed=sampler_seed)
+    for e in range(epochs):
+        seq = sampler.global_sequence(e)
+        for i in range(len(seq) // CONV_BATCH):
+            recs = [ds.record_tokens(int(f)) for f in seq[i * CONV_BATCH:(i + 1) * CONV_BATCH]]
+            tokens, mask = _to_grid(recs, CONV_SEQ + 1, 0)
+            yield dict(tokens=tokens[:, :-1], targets=tokens[:, 1:], loss_mask=mask[:, 1:])
+
+
+def convergence_losses(model, lr: float, batches, steps: int, *, on_batch=None,
+                       profile_steps: int = 0):
+    """Train ``model`` from its current weights with AdamW at ``lr`` on the
+    first ``steps`` of ``batches``, as the reference's ``_train``; the
+    per-step losses. ``on_batch(step, feed)``, when given, sees every feed
+    before its step. With ``profile_steps``, the first ``profile_steps``
+    steps run under ``torch.profiler`` (the card synchronised before the
+    third and after the last), which is returned beside the losses."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import build_train_step, fresh_train_state
+
+    run = RunConfig(optimizer="adamw", learning_rate=lr)
+    opt = make_optimizer(run)
+    state = fresh_train_state(model, opt)
+    step_fn = build_train_step(model, run, opt)
+    prof = None
+    if profile_steps:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    losses = []
+    for i, b in zip(range(steps), batches):
+        feed = {k: torch.as_tensor(b[k]).to(model.device)
+                for k in ("tokens", "targets", "loss_mask")}
+        if on_batch is not None:
+            on_batch(i, feed)
+        if i < profile_steps:
+            if i == 2:
+                torch.cuda.synchronize()
+            with record_function(f"chip_smoke.conv_step{i}"):
+                pass
+        state, metrics = step_fn(state, feed)
+        losses.append(metrics["loss"])
+        if i == profile_steps - 1:
+            torch.cuda.synchronize()
+            prof.stop()
+    losses = [float(x) for x in losses]
+    return (losses, prof) if profile_steps else losses
+
+
+def tail_mean(losses: list) -> float:
+    """The mean of the last third of a curve (the reference's ``tail``)."""
+    k = max(len(losses) // 6, 1)
+    return statistics.fmean(losses[-2 * k:])
+
+
+def convergence_cell(name: str, cfg, lr: float, epochs: int, steps: int, device, *,
+                     yardstick: bool, profile_steps: int = 0) -> dict:
+    """One convergence comparison: from one init, Redox at CONV_SLOTS and
+    CONV_SMALL_SLOTS slots (through the gather, whose launches must equal
+    the staged batches, and every fed batch equal to the host stream of a
+    fresh loader on the same store) and the exact shuffle (staged plainly,
+    no gather), with ``yardstick`` a second exact shuffle of another
+    sampler seed; the tail means' gaps to the exact shuffle held to
+    CONV_TAIL_TOL after the curves print. With ``profile_steps``, the first
+    Redox run profiles its first steps (:func:`device_profile`'s numbers
+    under ``profile``)."""
+    import torch
+
+    from repro_torch.core.device import DeviceStager
+    from repro_torch.models import build_model
+
+    params, profiled = None, None
+    curves, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_conv_") as tmp:
+        runs = [("redox", CONV_SLOTS), ("exact", None), ("redox_small_mem", CONV_SMALL_SLOTS)]
+        if yardstick:
+            runs.append((f"exact_seed{CONV_YARDSTICK_SEED}", None))
+        for run, slots in runs:
+            model = build_model(cfg, device=device).init(CONV_INIT_SEED)
+            params = sum(p.numel() for p in model.parameters())
+            stager = DeviceStager(device=device) if slots else None
+            batches = (redox_batches(tmp, epochs, slots, stager) if slots else
+                       exact_shuffle_batches(epochs, CONV_YARDSTICK_SEED if "seed" in run
+                                             else CONV_SAMPLER_SEED))
+            fed = []
+            profiling = profile_steps if run == "redox" else 0
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            curves[run] = convergence_losses(
+                model, lr, batches, steps, profile_steps=profiling,
+                on_batch=(lambda i, feed: fed.append(feed)) if slots else None)
+            if profiling:
+                curves[run], profiled = curves[run]
+            wall = time.perf_counter() - t0
+            batches.close()  # tears the stager's stream down before the counts are read
+            launches[run] = read_launches()["chunk_gather_train"]
+            staged = 0
+            if stager is not None:
+                stager.close()
+                staged = stager.stats.steps
+                if (launches[run] < steps or launches[run] != staged
+                        or launches[run] != stager.stats.kernel_steps):
+                    fail(f"{name} {run}: {launches[run]} gather launches for {staged} staged "
+                         f"batches and {steps} steps")
+                hold_to_host_stream(f"{name} {run}", fed,
+                                    redox_host_batches(tmp, epochs, slots))
+            elif launches[run]:
+                fail(f"{name} {run}: the exact shuffle launched the gather")
+            print(f"{name} {run}: {steps} steps in {wall:.1f} s, {launches[run]} gather "
+                  f"launches ({staged} staged batches)"
+                  + (f", the first {profiling} profiled" if profiling else ""), flush=True)
+            del model, fed
+            torch.cuda.empty_cache()
+    k = max(steps // 6, 1)
+    print(f"{name}: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{params:,d} parameters, AdamW {lr}, B {CONV_BATCH} x S {CONV_SEQ}, {steps} steps")
+    print(f"{'step':>5s} " + " ".join(f"{run:>16s}" for run in curves))
+    for i in range(0, steps, k):
+        print(f"{i:5d} " + " ".join(f"{c[i]:16.4f}" for c in curves.values()))
+    tails = {run: tail_mean(c) for run, c in curves.items()}
+    gaps = {run: abs(t - tails["exact"]) for run, t in tails.items() if run != "exact"}
+    print(f"tail-mean loss: {json.dumps(tails)}; gaps to the exact shuffle {json.dumps(gaps)} "
+          f"(bound {CONV_TAIL_TOL} for the Redox runs)")
+    if not all(math.isfinite(x) for c in curves.values() for x in c):
+        fail(f"{name}: a loss is not finite")
+    for run in ("redox", "redox_small_mem"):
+        if not gaps[run] < CONV_TAIL_TOL:
+            fail(f"{name}: {run}'s tail mean lies {gaps[run]:.4f} from the exact shuffle's "
+                 f"(bound {CONV_TAIL_TOL})")
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model, "params": params, "lr": lr,
+           "steps": steps, "tail_means": tails, "gaps": gaps, "launches": launches,
+           "curves": {run: c[::k] for run, c in curves.items()}}
+    if profiled is not None:
+        print(f"-- where {name}'s step time goes (torch.profiler, its Redox run's steps "
+              f"3-{profile_steps})", flush=True)
+        out["profile"] = device_profile(profiled, "chip_smoke.conv_step2",
+                                        "chunk_gather_train_kernel", profile_steps - 2)
+    return out
+
+
+def convergence_path(device) -> dict:
+    """Phase 15: 15a at the reference's size (reduced tinyllama, 2 layers,
+    AdamW 3e-3, 120 steps), 15b at the 100m preset's widths
+    (CONV_WIDE_STEPS, AdamW 3e-4) with the yardstick, its Redox run's
+    first 6 steps profiled (15c); both cells at vocab CONV_VOCAB in f32."""
+    from repro_torch.configs import ARCHS, reduced
+
+    preset = load_example("train_lm_torch").preset_config("100m")
+    small = dataclasses.replace(reduced(ARCHS["tinyllama-1.1b"]), vocab_size=CONV_VOCAB,
+                                num_layers=2)
+    wide = dataclasses.replace(preset, vocab_size=CONV_VOCAB)
+    out = {"15a": convergence_cell("15a", small, 3e-3, 3, 120, device, yardstick=False)}
+    print("-- 15b", flush=True)
+    out["15b"] = convergence_cell("15b", wide, 3e-4, 3, CONV_WIDE_STEPS, device,
+                                  yardstick=True, profile_steps=6)
+    return out
+
+
+def examples_and_convergence(phase, device) -> tuple:
+    """Phases 14 and 15 (the last phase: the clock stops after it)."""
+    import torch
+
+    phase("14. the examples: examples/train_lm_torch.py " + " ".join(EXAMPLE_TRAIN_ARGS)
+          + " --steps {} then {}; examples/serve_decode_torch.py".format(*EXAMPLE_TRAIN_STEPS))
+    examples_run = {"train": example_training(), "serve": example_serving()}
+    torch.cuda.empty_cache()
+    phase("15. convergence parity (paper Fig. 15 / Table 7): Redox against an exact "
+          "shuffle, 15a reduced tinyllama, 15b the 100m preset's widths")
+    conv_run = convergence_path(device)
+    phase(None)
+    return examples_run, conv_run
+
+
 def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
@@ -3061,6 +3539,9 @@ def main(argv=None) -> int:
                              "cases included), and phases 5, 5b and 5c (tinyllama served "
                              "through the decode graph, its profile beside the eager step's, "
                              "the graph against the eager step); print them as JSON last")
+    parser.add_argument("--examples", action="store_true",
+                        help="run only phases 1-2, 14 (the example twins) and 15 "
+                             "(convergence parity); print them as JSON last")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -3105,6 +3586,11 @@ def main(argv=None) -> int:
         print(json.dumps({"gathers": times}))
         return 0
     build_all()
+    if args.examples:
+        examples_run, conv_run = examples_and_convergence(phase, device)
+        print(card_line)
+        print(json.dumps({"examples_path": examples_run, "convergence": conv_run}))
+        return 0
     if args.decode:
         phase("3. the attention kernels' parity and times (softcap cases included)")
         check_attention_grid(device)
@@ -3261,25 +3747,31 @@ def main(argv=None) -> int:
 
     phase("13c. dry run: python -m repro_torch.launch.dryrun " + " ".join(DRYRUN_ARGS))
     a2a_run["dryrun"] = dryrun_cell()
-    phase(None)
+    torch.cuda.empty_cache()
+
+    examples_run, conv_run = examples_and_convergence(phase, device)
 
     # Launches in the main paths' runs: flash and decode run in the five
     # attention serving paths, ssd_scan in the hybrid's; the raw gather is
     # on no path, and the xLSTM path launches no kernel.
     by_path = {"serve_path": serve_run["launches"], "hybrid_path": hybrid_run["launches"],
                "moe_path": moe_run["launches"], "vlm_path": vlm_run["launches"],
-               "moe_a2a_path": a2a_run["launches"]}
+               "moe_a2a_path": a2a_run["launches"],
+               "examples_path": examples_run["serve"]["launches"]}
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
         counts = {path: launches[name] for path, launches in by_path.items() if name in launches}
         kernels[name]["launches"] = sum(counts.values())
         kernels[name]["launches_by_path"] = counts
-    # The training gather runs on phase 4's path, phase 8's autotuned one
-    # and phase 12's two; the data-server path ships assembled grids and
-    # launches none.
+    # The training gather runs on phase 4's path, phase 8's autotuned one,
+    # phase 12's two, the example trainer's two runs and phase 15's Redox
+    # runs; the data-server path ships assembled grids and launches none.
     counts = {"main_path": run["launches"], "data_service_path": ds_run["gather_launches"],
               "autotune_path": ds_run["autotune"]["gather_launches"],
               "encoder_path": enc_run["launches"],
-              "encoder_sgdm_path": enc_run["sgdm"]["launches"]}
+              "encoder_sgdm_path": enc_run["sgdm"]["launches"],
+              "examples_path": sum(r["launches"] for r in examples_run["train"]["runs"]),
+              "convergence_path": sum(n for cell in conv_run.values()
+                                      for n in cell["launches"].values())}
     kernels["chunk_gather_train"]["launches"] = sum(counts.values())
     kernels["chunk_gather_train"]["launches_by_path"] = counts
 
@@ -3294,6 +3786,8 @@ def main(argv=None) -> int:
     print(json.dumps({"vlm_path": vlm_run}))
     print(json.dumps({"encoder_path": enc_run}))
     print(json.dumps({"moe_a2a_path": a2a_run}))
+    print(json.dumps({"examples_path": examples_run}))
+    print(json.dumps({"convergence": conv_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

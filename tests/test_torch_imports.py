@@ -35,8 +35,17 @@ def _imports(path: Path):
             yield node.module
 
 
+#: The torch twins of the JAX examples: they import nothing banned, and
+#: run on the card unless ``--device cpu``.
+TWINS = ["serve_decode_torch.py", "train_lm_torch.py"]
+TWIN_CPU_ARGS = {"serve_decode_torch.py": ["--batch", "2", "--prompt-len", "8",
+                                           "--new-tokens", "3"],
+                 "train_lm_torch.py": ["--preset", "small", "--steps", "2", "--ckpt-every", "2"]}
+
+
 def test_no_jax_or_reference_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) >= 90
     bad = []
     for f in files:
@@ -44,6 +53,28 @@ def test_no_jax_or_reference_imports_in_port_sources():
             if mod.split(".")[0] in BANNED:
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twins_run_without_loading_jax(name, tmp_path):
+    """The twin runs on the CPU under ``--device cpu``, and neither JAX
+    nor the reference package is ever imported."""
+    argv = TWIN_CPU_ARGS[name] + ["--device", "cpu"]
+    if name.startswith("train"):
+        argv += ["--workdir", str(tmp_path)]
+    script = textwrap.dedent(f"""
+        import runpy, sys
+        sys.argv = [{name!r}, *{argv!r}]
+        runpy.run_path({str(ROOT / "examples" / name)!r}, run_name="__main__")
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+        assert not leaked, leaked
+        print("OK")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         env=_env(), timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")
 
 
 @pytest.mark.parametrize("rel", ["models/moe.py", "models/xlstm.py", "models/transformer.py"])
@@ -157,6 +188,21 @@ def test_entry_points_refuse_to_run_without_a_card():
     )
     assert out.returncode != 0
     assert "CUDA" in out.stderr
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twins_refuse_to_run_without_a_card(name, tmp_path):
+    """Without ``--device cpu`` a twin exits non-zero and names CUDA
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / name), *TWIN_CPU_ARGS[name]],
+        capture_output=True, text=True, env=_env(), timeout=240, cwd=tmp_path,
+    )
+    assert out.returncode != 0
+    assert "CUDA" in out.stderr
+    assert not list(tmp_path.iterdir())  # nothing built, nothing written
 
 
 def test_port_serves_without_loading_jax():
