@@ -207,7 +207,25 @@ and each of which prints its wall time:
    preset's widths, 160 steps (2.5 epochs), AdamW 3e-4, with a fourth run,
    an exact shuffle of another sampler seed, whose gap is printed as the
    yardstick of two honest shuffles. 15c: 15b's first Redox run profiles
-   its steps 3-6 (idle share, device operations a step).
+   its steps 3-6 (idle share, device operations a step);
+16. the compiled train step (``train_step.GraphTrain``, which every
+   training phase above runs through on the card): (16a) at phase 4's
+   shape (tinyllama-1.1b full width, bf16, B=8, S=2048, remat dots,
+   AdamW) and at the 100m preset's widths (f32, B=8, S=512) with AdamW,
+   Adafactor and SGDM, 4 steps through the eager step twice and through
+   the graph, each from the same init on the same seeded feeds: the
+   graph's difference from the first eager run, per state leaf (every
+   parameter, moment, factored moment, momentum, master and the step) and
+   per metric, must not exceed the eager step's own run-to-run spread
+   (bit for bit where eager repeats itself); (16b) the graph and the eager
+   step in turn at 15c's step (15b's config, the first six batches of its
+   exact shuffle) and at phase 4's (seeded feeds), steps 3-6 profiled:
+   idle share, device operations and busy ms a step, the graph's nodes,
+   host µs a call and a bare replay (each alone on an idle card), and the
+   run's peak memory; (16c) while a reduced tinyllama step is captured,
+   another thread stages a pack as the stager does: its gather counts one
+   launch over 4 steps, none of it in the graph, its grids the plain
+   gather's.
 
 Phase 6 also holds reduced llava-next-34b (serving, with patches),
 hubert-xlarge and phi3-medium-14b (through vecq) to the CPU in f32:
@@ -215,12 +233,12 @@ logits and two Adafactor and two SGDM steps each. Phase 3 also holds
 both attention kernels at G = 7 and G = 4, D = 128, and times them at
 llava's shapes.
 
-The last fourteen lines are the training path's numbers as JSON, the
+The last fifteen lines are the training path's numbers as JSON, the
 serving path's, the hybrid serving path's, the data-service path's, the MoE
 serving path's, the xLSTM serving path's, the VLM serving path's, the
 encoder training path's, the all-to-all MoE path's (with 13b and 13c),
-the examples' (phase 14), the convergence cells' (phase 15),
-the card's name and power limit, the kernel
+the examples' (phase 14), the convergence cells' (phase 15), the train
+graph's (phase 16), the card's name and power limit, the kernel
 table as JSON (five kernels), and ``{"ok": true, "device": {...}}``. Exits non-zero without a card, and in
 a directory without the port's sources.
 
@@ -237,7 +255,7 @@ times included) and phases 5, 5b and 5c, and prints them as JSON last.
 
     python3 chip_smoke.py --examples
 
-runs phases 1-2, 14 and 15 and prints them as JSON last.
+runs phases 1-2, 14, 15 and 16 and prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -422,6 +440,10 @@ CONV_YARDSTICK_SEED = 12
 #: (steps 108-159) still ends on the plateau that a 192-step run reached
 #: by step 128 (loss 2.60-2.63 in every run).
 CONV_WIDE_STEPS = 160
+#: Phase 16a: steps of each run, the graph's and the eager step's, and the
+#: optimizers run at the 100m preset's widths.
+GRAPH_STEPS = 4
+GRAPH_OPTIMIZERS = ("adamw", "adafactor", "sgdm")
 
 
 class PhaseClock:
@@ -1540,12 +1562,13 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
     }
 
 
-def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
+def device_profile(prof, start_marker: str, kernel: str | None, steps: int) -> dict:
     """From a profiler run: the device's idle share from ``start_marker``
     to the last device event (``steps`` steps), the device operations per
-    step, the heaviest kernels, the launches of kernels whose name holds
-    ``kernel`` (fails without any), and over the whole run the device
-    operations and device time per launch on the streams that ran it."""
+    step, the heaviest kernels and, unless ``kernel`` is None, the launches
+    of kernels whose name holds ``kernel`` (fails without any), and over
+    the whole run the device operations and device time per launch on the
+    streams that ran it."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         trace_file = Path(work) / "trace.json"
         prof.export_chrome_trace(str(trace_file))
@@ -1579,6 +1602,10 @@ def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, t in top:
         print(f"  {t / total:6.1%}  {t / 1e3:9.3f} ms  {name[:110]}")
+    out = {"idle_share": idle, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+           "ops_per_step": ops / steps, "top": [[name[:80], t / total] for name, t in top[:5]]}
+    if kernel is None:
+        return out
     ours = sum(t for n, t in by_name.items() if kernel in n)
     each = [e_ - s_ for s_, e_, name, _ in device if kernel in name]
     if not each:
@@ -1594,12 +1621,10 @@ def device_profile(prof, start_marker: str, kernel: str, steps: int) -> dict:
           f"{len(on_streams) / len(each):.2f} device operations and "
           f"{sum(d for d, _ in on_streams) / len(each):.3f} us of device time a launch "
           f"({kinds})")
-    return {"idle_share": idle, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
-            "ops_per_step": ops / steps, "kernel_share": ours / total, "kernel_launches": len(each),
-            "kernel_us_each": statistics.mean(each),
-            "stream_ops_per_launch": len(on_streams) / len(each),
-            "stream_us_per_launch": sum(d for d, _ in on_streams) / len(each),
-            "top": [[name[:80], t / total] for name, t in top[:5]]}
+    return dict(out, kernel_share=ours / total, kernel_launches=len(each),
+                kernel_us_each=statistics.mean(each),
+                stream_ops_per_launch=len(on_streams) / len(each),
+                stream_us_per_launch=sum(d for d, _ in on_streams) / len(each))
 
 
 def profile_training(argv, marker: str) -> tuple[dict, int]:
@@ -1730,6 +1755,21 @@ def profile_decode(decode, cache, tok, pos0: int, first: int, steps: int, label:
     return out
 
 
+def alone_us(fn, calls: int = 16) -> float:
+    """The host time of ``fn()``, each call alone on an idle card: the
+    median of ``calls``, in microseconds."""
+    import torch
+
+    samples = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
 def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
     """Profile decode steps of the served model after a fresh prefill of
     the same prompts, from the third step, through the step the server
@@ -1772,16 +1812,6 @@ def where_decode_time_goes(summary, *, steps: int = 16) -> dict:
         end.record()
         end.synchronize()
         replay_ms = start.elapsed_time(end) / 16
-
-        def alone_us(fn) -> float:
-            samples = []
-            for _ in range(16):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                samples.append((time.perf_counter() - t0) * 1e6)
-            torch.cuda.synchronize()
-            return statistics.median(samples)
 
         call_us = alone_us(lambda: decode(cache, tok, pos))
         replay_us = alone_us(decode.graph.replay)
@@ -3374,7 +3404,7 @@ def convergence_losses(model, lr: float, batches, steps: int, *, on_batch=None,
             with record_function(f"chip_smoke.conv_step{i}"):
                 pass
         state, metrics = step_fn(state, feed)
-        losses.append(metrics["loss"])
+        losses.append(metrics["loss"].clone())  # the step may reuse its buffers
         if i == profile_steps - 1:
             torch.cuda.synchronize()
             prof.stop()
@@ -3492,8 +3522,290 @@ def convergence_path(device) -> dict:
     return out
 
 
+# -------------------------------------------------------------- phase 16
+def seeded_feeds(cfg, batch: int, seq: int, steps: int, device, seed: int = 0) -> list:
+    """``steps`` train feeds from numpy at ``seed`` (tokens over ``cfg``'s
+    vocab, the next tokens as targets, a tenth of the positions masked),
+    on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        tokens = rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+        mask = (rng.random((batch, seq)) < 0.9).astype(np.float32)
+        out.append({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    for k, v in (("tokens", tokens[:, :-1]), ("targets", tokens[:, 1:]),
+                                 ("loss_mask", mask))})
+    return out
+
+
+def train_step_of(model, run, opt, graph: bool):
+    """``build_train_step``'s step, which must be the graph on the card, or
+    the eager step it captures."""
+    from repro_torch.train.train_step import GraphTrain, _eager_train_step, build_train_step
+
+    if not graph:
+        return _eager_train_step(model, run, opt)
+    step = build_train_step(model, run, opt)
+    if not isinstance(step, GraphTrain):
+        fail(f"build_train_step gave {type(step).__name__} on the card, not GraphTrain")
+    return step
+
+
+def train_run(cfg, run, feeds, device, graph: bool) -> tuple[dict, list]:
+    """From ``cfg``'s init at seed 0, one step a feed through the graph or
+    the eager step; the state's leaves after the last step and each step's
+    metrics."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.models.common import flatten_tree
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import fresh_train_state
+
+    model = build_model(cfg, device=device).init(0)
+    opt = make_optimizer(run)
+    state = fresh_train_state(model, opt)
+    step = train_step_of(model, run, opt, graph)
+    metrics = [step(state, feed)[1] for feed in feeds]
+    if graph and not step.captured:
+        fail("the graph step did not capture")
+    torch.cuda.synchronize()
+    return flatten_tree(state), metrics
+
+
+def run_diffs(a: tuple, b: tuple) -> dict:
+    """Per state leaf and per metric (over every step), the max abs
+    difference between two :func:`train_run` results."""
+    (sa, ma), (sb, mb) = a, b
+    out = {k: float((sa[k].detach().float() - sb[k].detach().float()).abs().max())
+           for k in sa}
+    for key in ma[0]:
+        out[f"metrics/{key}"] = max(float((x[key].float() - y[key].float()).abs().max())
+                                    for x, y in zip(ma, mb))
+    return out
+
+
+def graph_against_eager_train(name: str, cfg, run, feeds, device) -> dict:
+    """Phase 16a for one shape: the eager step twice, then the graph, each
+    from the same init on the same feeds. The graph's difference from the
+    first eager run, leaf by leaf and metric by metric, must not exceed the
+    eager step's own from run to run: bit for bit where eager repeats
+    itself."""
+    import torch
+
+    first = train_run(cfg, run, feeds, device, graph=False)
+    spread = run_diffs(first, train_run(cfg, run, feeds, device, graph=False))
+    torch.cuda.empty_cache()
+    graph = run_diffs(first, train_run(cfg, run, feeds, device, graph=True))
+    del first
+    torch.cuda.empty_cache()
+    over = {k: (graph[k], spread[k]) for k in graph if graph[k] > spread[k]}
+    worst_spread, worst_graph = max(spread.values()), max(graph.values())
+    repeats = worst_spread == 0
+    print(f"{name}: {len(feeds)} steps, {len(graph)} state leaves and metrics; eager against "
+          f"eager: max abs difference {worst_spread:.3e} "
+          f"({'bit for bit' if repeats else 'eager does not repeat itself'}); graph against "
+          f"eager: {worst_graph:.3e} (bound: eager's spread, leaf by leaf)")
+    if over:
+        fail(f"{name}: the graph differs from the eager step beyond eager's own spread: {over}")
+    return {"steps": len(feeds), "leaves": len(graph), "eager_spread": worst_spread,
+            "graph_diff": worst_graph, "eager_repeats": repeats,
+            "bit_for_bit": worst_graph == 0}
+
+
+def graph_train_cases():
+    """Phase 16's shapes: (name, config, run config, batch, sequence)."""
+    from repro_torch.configs import RunConfig, get_config
+
+    preset = load_example("train_lm_torch").preset_config("100m")
+    cases = [("tinyllama-1.1b full width, bf16, AdamW", get_config("tinyllama-1.1b"),
+              RunConfig(optimizer="adamw", remat="dots"), 8, 2048)]
+    for optimizer in GRAPH_OPTIMIZERS:
+        cases.append((f"the 100m preset's widths, f32, {optimizer}", preset,
+                      RunConfig(optimizer=optimizer, remat="dots"), 8, 512))
+    return cases
+
+
+def graph_agreement_train(device) -> dict:
+    """Phase 16a: :func:`graph_against_eager_train` at every shape of
+    :func:`graph_train_cases`, GRAPH_STEPS steps each."""
+    out = {}
+    for name, cfg, run, batch, seq in graph_train_cases():
+        feeds = seeded_feeds(cfg, batch, seq, GRAPH_STEPS, device)
+        out[name] = graph_against_eager_train(name, cfg, run, feeds, device)
+    return out
+
+
+def profile_train_step(cfg, run, feeds, device, *, graph: bool, label: str,
+                       calls: int) -> dict:
+    """Six steps on ``feeds`` from ``cfg``'s init, steps 3-6 profiled (the
+    card synchronised before step 3's marker, after the capture): the idle
+    share, device operations and busy ms a step (:func:`device_profile`);
+    then the host time of a call and, for the graph, of a bare replay
+    (:func:`alone_us`, ``calls`` calls), and the run's peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import fresh_train_state
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=device).init(0)
+    opt = make_optimizer(run)
+    state = fresh_train_state(model, opt)
+    step = train_step_of(model, run, opt, graph)
+    for feed in feeds[:2]:
+        step(state, feed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, feed in enumerate(feeds[2:6], 2):
+            with record_function(f"chip_smoke.{label}{i}"):
+                pass
+            step(state, feed)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} steps 3-6:")
+    out = device_profile(prof, f"chip_smoke.{label}2", None, 4)
+    out["busy_ms_per_step"] = out["busy_ms"] / 4
+    out["host_us_per_call"] = alone_us(lambda: step(state, feeds[0]), calls)
+    out["max_memory_allocated_gib"] = peak / 2**30
+    if graph:
+        out["graph_nodes"] = step.nodes
+        out["host_us_per_replay"] = alone_us(step.graph.replay, calls)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def where_graph_time_goes(device) -> dict:
+    """Phase 16b: :func:`profile_train_step` with the graph and with the
+    eager step in turn, at 15c's step (15b's config and shape, on the first
+    six batches of its exact shuffle) and at phase 4's (tinyllama-1.1b full
+    width, B = 8 x 2048, on seeded feeds)."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+
+    wide = dataclasses.replace(load_example("train_lm_torch").preset_config("100m"),
+                               vocab_size=CONV_VOCAB)
+    conv_feeds = [{k: torch.as_tensor(b[k]).to(device) for k in ("tokens", "targets",
+                                                                "loss_mask")}
+                  for _, b in zip(range(6), exact_shuffle_batches(1))]
+    cells = {"15c": (wide, RunConfig(optimizer="adamw", learning_rate=3e-4), conv_feeds, 16),
+             "4": (get_config("tinyllama-1.1b"), RunConfig(optimizer="adamw", remat="dots"),
+                   seeded_feeds(get_config("tinyllama-1.1b"), 8, 2048, 6, device), 3)}
+    out = {}
+    for cell, (cfg, run, feeds, calls) in cells.items():
+        both = {way: profile_train_step(cfg, run, feeds, device, graph=way == "graph",
+                                        label=f"p{cell}_{way}", calls=calls)
+                for way in ("graph", "eager")}
+        g, e = both["graph"], both["eager"]
+        print(f"phase {cell}'s step, graph against eager: idle share {g['idle_share']:.4f} / "
+              f"{e['idle_share']:.4f}; device operations a step {g['ops_per_step']:.1f} / "
+              f"{e['ops_per_step']:.1f} (graph nodes {g['graph_nodes']}); busy "
+              f"{g['busy_ms_per_step']:.4f} / {e['busy_ms_per_step']:.4f} ms a step; window "
+              f"{g['window_ms'] / 4:.4f} / {e['window_ms'] / 4:.4f} ms a step; host "
+              f"{g['host_us_per_call']:.1f} / {e['host_us_per_call']:.1f} us a call "
+              f"({g['host_us_per_replay']:.1f} us a bare replay); max_memory_allocated "
+              f"{g['max_memory_allocated_gib']:.3f} / {e['max_memory_allocated_gib']:.3f} GiB",
+              flush=True)
+        out[cell] = both
+        del feeds
+    return out
+
+
+def train_graph_path(device) -> dict:
+    """Phase 16: the compiled train step (16a against the eager step, 16b
+    where its time goes beside the eager step's)."""
+    import torch
+
+    out = {"16a": graph_agreement_train(device)}
+    torch.cuda.empty_cache()
+    out["16b"] = where_graph_time_goes(device)
+    torch.cuda.empty_cache()
+    out["16c"] = graph_leaves_stager_launches(device)
+    return out
+
+
+def graph_leaves_stager_launches(device) -> dict:
+    """16c: while a reduced tinyllama step is captured, another thread
+    stages one pack as the stager does (pinned buffers, their copies, the
+    gather, on a side stream of its own). The gather must count one launch
+    whatever the replays, the graph must hold none of it, and its grids
+    must equal the plain gather's."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config, reduced
+    from repro_torch.kernels.chunk_gather.ops import chunk_gather_train
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.train_step import GraphTrain, build_train_step, fresh_train_state
+
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    run = RunConfig(remat="dots")
+    model = build_model(cfg, device=device).init(0)
+    opt = make_optimizer(run)
+    state = fresh_train_state(model, opt)
+    step = build_train_step(model, run, opt)
+    if not isinstance(step, GraphTrain):
+        fail(f"build_train_step gave {type(step).__name__} on the card, not GraphTrain")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33)).astype(np.int32))
+    feed = {"tokens": tokens[:, :-1].contiguous().to(device),
+            "targets": tokens[:, 1:].contiguous().to(device),
+            "loss_mask": torch.ones(4, 32, device=device)}
+    pack = (rng.integers(0, cfg.vocab_size, (6, 48)).astype(np.int32),
+            rng.integers(1, 48, 6).astype(np.int32), rng.permutation(6)[:4].astype(np.int32))
+    gathered = []
+
+    def stage():
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            dev = []
+            for a in pack:
+                host = torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
+                host.numpy()[:] = a
+                dev.append(host.to(device, non_blocking=True))
+            gathered.append(chunk_gather_train(*dev, seq_len=32))
+
+    eager_step = step.step
+
+    def step_and_stage(state, batch):
+        if torch.cuda.is_current_stream_capturing():
+            stager = threading.Thread(target=stage)
+            stager.start()
+            stager.join()
+        return eager_step(state, batch)
+
+    step.step = step_and_stage
+    zero_launches()
+    for _ in range(4):
+        step(state, feed)
+    torch.cuda.synchronize()
+    launches = read_launches()["chunk_gather_train"]
+    in_graph = sum(n for w, n in step._launches if w is chunk_gather_train)
+    want = chunk_gather_train(*(torch.from_numpy(a) for a in pack), seq_len=32)
+    equal = len(gathered) == 1 and all(torch.equal(g.cpu(), w)
+                                       for g, w in zip(gathered[0], want))
+    print(f"16c: a gather staged on another thread during the capture: {launches} launch "
+          f"counted over 4 steps, {in_graph} in the graph, grids equal to the plain "
+          f"gather's: {equal}")
+    if launches != 1 or in_graph or not equal:
+        fail("16c: a gather staged during the capture was not counted as one launch "
+             "outside the graph, or its grids differ from the plain gather's")
+    return {"gather_launches": launches, "in_graph": in_graph, "grids_equal": equal}
+
+
 def examples_and_convergence(phase, device) -> tuple:
-    """Phases 14 and 15 (the last phase: the clock stops after it)."""
+    """Phases 14, 15 and 16 (the last phase: the clock stops after it)."""
     import torch
 
     phase("14. the examples: examples/train_lm_torch.py " + " ".join(EXAMPLE_TRAIN_ARGS)
@@ -3503,8 +3815,12 @@ def examples_and_convergence(phase, device) -> tuple:
     phase("15. convergence parity (paper Fig. 15 / Table 7): Redox against an exact "
           "shuffle, 15a reduced tinyllama, 15b the 100m preset's widths")
     conv_run = convergence_path(device)
+    torch.cuda.empty_cache()
+    phase("16. the compiled train step: 16a the graph against the eager step, 16b where "
+          "their time goes, 16c a gather staged during the capture")
+    graph_run = train_graph_path(device)
     phase(None)
-    return examples_run, conv_run
+    return examples_run, conv_run, graph_run
 
 
 def build_all(packages=KERNEL_PACKAGES) -> None:
@@ -3540,8 +3856,9 @@ def main(argv=None) -> int:
                              "through the decode graph, its profile beside the eager step's, "
                              "the graph against the eager step); print them as JSON last")
     parser.add_argument("--examples", action="store_true",
-                        help="run only phases 1-2, 14 (the example twins) and 15 "
-                             "(convergence parity); print them as JSON last")
+                        help="run only phases 1-2, 14 (the example twins), 15 "
+                             "(convergence parity) and 16 (the compiled train step); print "
+                             "them as JSON last")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -3587,9 +3904,10 @@ def main(argv=None) -> int:
         return 0
     build_all()
     if args.examples:
-        examples_run, conv_run = examples_and_convergence(phase, device)
+        examples_run, conv_run, graph_run = examples_and_convergence(phase, device)
         print(card_line)
-        print(json.dumps({"examples_path": examples_run, "convergence": conv_run}))
+        print(json.dumps({"examples_path": examples_run, "convergence": conv_run,
+                          "train_graph": graph_run}))
         return 0
     if args.decode:
         phase("3. the attention kernels' parity and times (softcap cases included)")
@@ -3749,7 +4067,7 @@ def main(argv=None) -> int:
     a2a_run["dryrun"] = dryrun_cell()
     torch.cuda.empty_cache()
 
-    examples_run, conv_run = examples_and_convergence(phase, device)
+    examples_run, conv_run, graph_run = examples_and_convergence(phase, device)
 
     # Launches in the main paths' runs: flash and decode run in the five
     # attention serving paths, ssd_scan in the hybrid's; the raw gather is
@@ -3788,6 +4106,7 @@ def main(argv=None) -> int:
     print(json.dumps({"moe_a2a_path": a2a_run}))
     print(json.dumps({"examples_path": examples_run}))
     print(json.dumps({"convergence": conv_run}))
+    print(json.dumps({"train_graph": graph_run}))
     print(card_line)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ kernel.
 
 Runs on the CUDA card (a capability-9.0 one) unless ``--device cpu`` is
 given; without a card it refuses instead of falling back to the CPU. The
-model stays in float32, as the reduced config sets it. The train step runs
-eagerly, where the reference jits it.
+model stays in float32, as the reduced config sets it. Where the reference
+jits the train step with the state donated, on the card the step is one
+replay of a CUDA graph that captured it at the first step
+(``train_step.GraphTrain``), the state updated in place.
 
     PYTHONPATH=src python examples/train_lm_torch.py --preset 100m --device-path gather
     PYTHONPATH=src python examples/train_lm_torch.py --steps 12 --preset small --device cpu
@@ -182,7 +184,7 @@ def train(args: argparse.Namespace, *, on_batch=None, store=None) -> dict:
             if on_batch is not None:
                 on_batch(step, feed)
             state, metrics = step_fn(state, feed)
-            losses.append(metrics["loss"])
+            losses.append(metrics["loss"].clone())  # the step may reuse its buffers
             step += 1
             if t_first is None:
                 _sync(device)

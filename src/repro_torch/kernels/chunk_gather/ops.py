@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import build
-from ..common import checked_cuda, resolve_device
+from ..common import checked_cuda, count_launch, resolve_device
 from .ref import chunk_gather_ref, chunk_gather_train_ref
 
 __all__ = ["check_indices", "chunk_gather", "chunk_gather_train", "vector_path"]
@@ -143,11 +143,11 @@ def chunk_gather_train(chunk_tokens, record_lens, indices, *, seq_len, pad_id=0)
             chunk_tokens.data_ptr(), record_lens.data_ptr(), indices.data_ptr(),
             tokens.data_ptr(), targets.data_ptr(), mask.data_ptr(),
             u, b, seq_len, lp, int(pad_id), int(vector_path(chunk_tokens, seq_len)))
-    chunk_gather_train.launches += 1
+    count_launch(chunk_gather_train)
     return tokens, targets, mask
 
 
-chunk_gather_train.launches = 0
+chunk_gather_train.launches = chunk_gather_train.captured_launches = 0
 
 
 def chunk_gather(chunk_tokens, record_lens, indices, *, pad_id=0):
@@ -172,8 +172,8 @@ def chunk_gather(chunk_tokens, record_lens, indices, *, pad_id=0):
             chunk_tokens.data_ptr(), record_lens.data_ptr(), indices.data_ptr(),
             tokens.data_ptr(), mask.data_ptr(), u, b, row_len, int(pad_id),
             int(vector_path(chunk_tokens, row_len)))
-    chunk_gather.launches += 1
+    count_launch(chunk_gather)
     return tokens, mask
 
 
-chunk_gather.launches = 0
+chunk_gather.launches = chunk_gather.captured_launches = 0

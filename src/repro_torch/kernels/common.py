@@ -17,8 +17,8 @@ import statistics
 
 import torch
 
-__all__ = ["checked_cuda", "graph_ms", "graph_nodes", "kernel_wrappers", "resolve_device",
-           "round_up", "zeroed_counters"]
+__all__ = ["checked_cuda", "count_launch", "graph_ms", "graph_nodes", "kernel_wrappers",
+           "resolve_device", "round_up", "zeroed_counters"]
 
 #: Compute capability the CUDA sources are built for (``sm_90a``).
 CAPABILITY = (9, 0)
@@ -113,9 +113,23 @@ def graph_ms(call, calls: int = 10, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
+def count_launch(wrapper) -> None:
+    """Count one call of ``wrapper`` that queued its kernel: a launch, in
+    ``wrapper.launches``, or, while the calling thread's current stream is
+    being captured into a CUDA graph (capture runs nothing), in
+    ``wrapper.captured_launches``, which a graph adds to ``launches`` at
+    every replay. The stream is the thread's own, so a stager that launches
+    the gather on its side stream while another thread captures a step
+    counts a launch, not a node of that step's graph."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper, by name; each counts its launches in
-    ``<wrapper>.launches``."""
+    ``<wrapper>.launches`` (:func:`count_launch`)."""
     from .chunk_gather.ops import chunk_gather, chunk_gather_train
     from .decode_attention.ops import decode_attention
     from .flash_attention.ops import flash_attention

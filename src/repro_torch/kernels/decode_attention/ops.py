@@ -20,7 +20,7 @@ import functools
 import torch
 
 from .. import build
-from ..common import resolve_device, zeroed_counters
+from ..common import count_launch, resolve_device, zeroed_counters
 from .ref import decode_attention_plain
 
 __all__ = ["HEAD_DIMS", "decode_attention", "query_group"]
@@ -144,8 +144,8 @@ def decode_attention(q, cache_k, cache_v, mask, *, softcap=0.0):
     if rc != 0:
         raise RuntimeError("decode_attention launch failed: "
                            + lib.decode_attention_error_string(rc).decode())
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = decode_attention.captured_launches = 0

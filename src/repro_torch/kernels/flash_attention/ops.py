@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from .. import build
-from ..common import resolve_device, zeroed_counters
+from ..common import count_launch, resolve_device, zeroed_counters
 from .ref import attention_gqa_ref, attention_ref
 
 __all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_gqa"]
@@ -86,7 +86,7 @@ def _launch(q, k, v, causal: bool, window: int, softcap: float):
     if rc != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
@@ -125,4 +125,4 @@ def flash_attention_gqa(q, k, v, *, causal=True, window=0, softcap=0.0):
     return _launch(q, k, v, causal, window, softcap)
 
 
-flash_attention.launches = 0
+flash_attention.launches = flash_attention.captured_launches = 0

@@ -31,7 +31,7 @@ import math
 import torch
 
 from .. import build
-from ..common import resolve_device
+from ..common import count_launch, resolve_device
 from .ref import ssd_scan_heads_ref, ssd_scan_ref
 
 __all__ = ["MAX_DIM", "copy_width", "heads_per_block", "ssd_scan", "ssd_scan_heads"]
@@ -131,7 +131,7 @@ def _launch(xh, dt, a, b, c, y, state0, final, a_strides) -> None:
         )
     if rc != 0:
         raise RuntimeError("ssd_scan launch failed: " + lib.ssd_scan_error_string(rc).decode())
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
 
 
 def _check_dtypes(x, b, c, dt, a) -> None:
@@ -198,4 +198,4 @@ def ssd_scan_heads(xh, dt, a, b, c, state0=None):
     return y, final
 
 
-ssd_scan.launches = 0
+ssd_scan.launches = ssd_scan.captured_launches = 0

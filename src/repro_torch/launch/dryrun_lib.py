@@ -335,7 +335,8 @@ def _train(model, run_cfg, mesh, cfg, shape):
     batch_sds = train_input_specs(cfg, shape)
     batch_pl = shd.batch_shardings(mesh, batch_sds, run_cfg)
     batch = {k: distribute(v, mesh, batch_pl[k]) for k, v in batch_sds.items()}
-    state = {"values": model.values(), "opt": opt, "step": torch.zeros((), dtype=torch.int32)}
+    state = {"values": model.values(), "opt": opt,
+             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
     args = _local_bytes([state["values"], opt, batch])
     step = build_train_step(model, run_cfg, optimizer)
 

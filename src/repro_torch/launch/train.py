@@ -313,7 +313,7 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
                     state, metrics = step_fn(state, feed)
                     if cuda:
                         torch.cuda.synchronize(device)
-            losses.append(metrics["loss"])
+            losses.append(metrics["loss"].clone())  # the step may reuse its buffers
             if io_grid is not None:
                 by_node = batch.get("io_by_node") or {}
                 for r in range(spec.num_nodes):

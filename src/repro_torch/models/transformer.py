@@ -510,7 +510,10 @@ class Model(nn.Module):
             entries = []
             for lp in seg.layers():
                 if ckpt:
-                    x, aux = checkpoint(_train_block, kind, lp, x, cfg, use_reentrant=False)
+                    # The block draws no random numbers: no RNG state to
+                    # keep, and a CUDA graph's capture may not read it.
+                    x, aux = checkpoint(_train_block, kind, lp, x, cfg, use_reentrant=False,
+                                        preserve_rng_state=False)
                 else:
                     x, entry, aux = _block(kind, lp, x, cfg, want_cache)
                     entries.append(entry)

@@ -68,6 +68,9 @@ def _f32(x) -> torch.Tensor:
 
 
 def _lr(step, cfg: RunConfig, warmup=200, total=10_000) -> torch.Tensor:
+    """The learning rate at ``step``, a 0-d f32 tensor on ``step``'s device
+    (the train state keeps the step on the model's, so that a captured
+    step computes its rate, and the bias corrections, at every replay)."""
     step = _f32(step)
     warm = cfg.learning_rate * (step + 1) / warmup
     prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
@@ -107,7 +110,6 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
 
     @torch.no_grad()
     def update(grads: dict, state: dict, values: dict, step) -> None:
-        # lr, c1 and c2 are 0-d CPU tensors, which CUDA ops take as scalars.
         lr = _lr(step, cfg)
         t = _f32(step) + 1
         c1 = 1 - b1**t

@@ -19,15 +19,20 @@ cache; decode runs one token (attention in the decode kernel) and updates
 that cache, K/V and recurrent states alike, in place, where the reference
 donates it. Both run under ``torch.inference_mode()``.
 
-The reference jits all three steps (``jax.jit``; decode with the cache
-donated, ``donate_argnums=1``, and the position traced). The port
-compiles only decode: on the card each token is one replay of a CUDA
-graph that captured one step (:class:`GraphDecode`), the position a
-device tensor, the caches the graph's own static state, updated in place.
-Decode is a few hundred small kernels a token, and run op by op from
-Python the card waited on the host most of the time. The train step and
-the prefill stay eager: each is a handful of large kernels, whose launch
-cost the card hides (training is idle well under 1% of a step).
+The reference jits all three steps (``jax.jit``; the train step with the
+state donated, ``donate_argnums=0``; decode with the cache donated,
+``donate_argnums=1``, and the position traced). On the card the port
+compiles the train step and decode the same way, each into one CUDA graph
+that captured one step and is replayed a step (:class:`GraphTrain`,
+:class:`GraphDecode`): the state or the caches are the graph's own static
+tensors, updated in place, and the step counter or the position a device
+tensor. Run op by op from Python on an H100, a train step at the 100m
+preset's widths (f32, B = 24 x 96, about 3,070 device operations) left
+the card idle 0.47-0.70 of its time (0.04 as a graph), and decode, a few
+hundred small kernels a token, most of it; tinyllama-1.1b's train step at
+B = 8 x 2048 (idle under 0.01 either way) hides its launches. Prefill
+stays eager: a serve run prefills once per shape, so a graph would be
+captured and replayed once.
 """
 
 from __future__ import annotations
@@ -45,8 +50,9 @@ from ..optim.optimizers import Optimizer, clip_by_global_norm
 from ..parallel.axes import current_ctx
 from .losses import lm_loss
 
-__all__ = ["GraphDecode", "build_decode_step", "build_prefill_step", "build_train_step",
-           "init_train_state"]
+__all__ = ["GraphDecode", "GraphTrain", "build_decode_step", "build_prefill_step",
+           "build_train_step", "fresh_train_state", "init_train_state"]
+
 
 def init_train_state(model: Model, optimizer: Optimizer, seed: int = 0) -> dict:
     """Initialise ``model``'s parameters from ``seed`` and the optimizer
@@ -56,16 +62,46 @@ def init_train_state(model: Model, optimizer: Optimizer, seed: int = 0) -> dict:
 
 
 def fresh_train_state(model: Model, optimizer: Optimizer) -> dict:
-    """Train state over ``model``'s current parameters (e.g. loaded weights)."""
+    """Train state over ``model``'s current parameters (e.g. loaded weights).
+
+    ``step`` is a 0-d int32 tensor on the model's device, so that the
+    learning rate and the bias corrections are computed there and a
+    captured step reads and advances it at every replay."""
     values = model.values()
     return {
         "values": values,
         "opt": optimizer.init(flatten_tree(values)),
-        "step": torch.zeros((), dtype=torch.int32),
+        "step": torch.zeros((), dtype=torch.int32, device=model.device),
     }
 
 
+def _one_card(model: Model) -> bool:
+    """Whether ``model``'s steps are captured in CUDA graphs: a CUDA model
+    with no sharding context installed, or with one over a one-device mesh."""
+    ctx = current_ctx()
+    return model.device.type == "cuda" and (
+        ctx is None or math.prod(ctx.mesh.shape.values()) == 1)
+
+
 def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
+    """``train_step(state, batch) -> (state, metrics)``, the state updated
+    in place.
+
+    On a CUDA model this is a :class:`GraphTrain`, unless a sharding
+    context is installed whose mesh spans more than one device (the
+    DTensor ops and collectives then run eagerly); on the CPU (the tests)
+    and the meta device (the dry run) it is :func:`_eager_train_step`'s
+    function. The choice is made here, once, as :func:`build_decode_step`
+    makes it. ``step.captured`` is False for the eager step, and for the
+    graph step says whether its first call has captured.
+    """
+    step = _eager_train_step(model, run_cfg, optimizer)
+    return GraphTrain(model, step) if _one_card(model) else step
+
+
+def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
+    """The train step run op by op from Python (what :class:`GraphTrain`
+    runs once and captures)."""
     cfg = model.cfg
 
     def loss_fn(batch):
@@ -99,7 +135,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         # grad dtype is forced, as the reference does.
         acc_dt = (getattr(torch, run_cfg.grad_allreduce_dtype)
                   if run_cfg.grad_allreduce_dtype else None)
-        loss = torch.zeros((), dtype=torch.float32)
+        loss = torch.zeros((), dtype=torch.float32, device=model.device)
         grads = {p: torch.zeros_like(v, dtype=acc_dt or v.dtype) for p, v in params.items()}
         for mb in micro:
             l, metrics, g = grad_fn(params, mb)
@@ -116,10 +152,126 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
             grads = {p: g.to(dt) for p, g in grads.items()}
         grads, gnorm = clip_by_global_norm(grads, run_cfg.grad_clip)
         optimizer.update(grads, state["opt"], params, state["step"])
-        state["step"] = state["step"] + 1
+        state["step"].add_(1)
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
+    train_step.captured = False
     return train_step
+
+
+def _warm_up(fn, device: torch.device):
+    """``fn()`` eagerly on a side stream, which waits for the current one
+    and which the current one then waits for: the eager pass that loads the
+    libraries and sizes the buffers a capture may not allocate. The caller
+    marks what it keeps of the outputs as used on the current stream."""
+    here = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(here)
+    with torch.cuda.stream(side):
+        out = fn()
+    here.wait_stream(side)
+    return out, here
+
+
+def _capture_graph(fn) -> tuple:
+    """``fn()`` captured into an instantiated CUDA graph (capture runs
+    nothing): ``(graph, fn's outputs, launches)``, ``launches`` the
+    ``(wrapper, n)`` of each kernel wrapper that the capture queued ``n``
+    times, counted in ``captured_launches`` (a replay adds them to
+    ``launches``). A stager's thread may stage batches meanwhile: its
+    launches are on its own stream, so they stay launches and out of the
+    graph, and the capture restricts only this thread's CUDA calls."""
+    wrappers = list(kernel_wrappers().values())
+    before = [w.captured_launches for w in wrappers]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    # torch.cuda.graph synchronises and empties the allocator's cache
+    # first, so the warm-up's freed blocks do not stay reserved beside the
+    # graph's pool.
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn()
+    graph.instantiate()
+    launches = [(w, w.captured_launches - n) for w, n in zip(wrappers, before)
+                if w.captured_launches != n]
+    return graph, out, launches
+
+
+def _state_ptrs(state: dict) -> list[int]:
+    return [t.data_ptr() for t in flatten_tree(state).values()]
+
+
+def _feed_spec(batch: dict) -> dict:
+    return {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+
+
+class GraphTrain:
+    """The train step as one CUDA graph a step, as the reference's
+    ``jax.jit(build_train_step(...), donate_argnums=0)``.
+
+    The first call is step 1: it copies the feed into static input
+    buffers, one per feed key, sized from that feed, and runs the eager
+    step on them on a side stream (the warm-up that the autograd engine
+    and cuBLAS need before a capture). It then captures one whole step
+    into a ``torch.cuda.CUDAGraph`` (capture runs nothing): the forward and
+    backward of every microbatch, the optional grad cast, the clipping,
+    the optimizer's in-place update and the step's increment, all reading
+    the static inputs and the state's own tensors. Each later call checks
+    that the feed's keys, shapes and dtypes are the captured ones and that
+    ``state`` holds the captured tensors, copies the feed into the static
+    inputs and replays; it raises ``ValueError`` on a mismatch and never
+    captures again or falls back to the eager step.
+
+    It returns the same ``state`` dict, updated in place, and metrics
+    (``loss``, ``grad_norm``, ``ce``, ``z_loss``, ``aux``) that are fresh
+    device copies of the graph's, made after the replay without a
+    synchronisation, so that a caller may keep them. As in
+    :class:`GraphDecode`, each kernel wrapper's ``launches`` gains at every
+    replay what capture added, and ``nodes`` counts the graph's device
+    operations by kind.
+    """
+
+    def __init__(self, model: Model, step):
+        self.model = model
+        self.step = step
+        self.graph = None
+        self.nodes: dict = {}
+
+    @property
+    def captured(self) -> bool:
+        """Whether the graph has been captured (at the first call)."""
+        return self.graph is not None
+
+    def __call__(self, state: dict, batch: dict):
+        if self.graph is None:
+            return self._capture(state, batch)
+        if _feed_spec(batch) != self._spec:
+            raise ValueError(f"this train step was captured on a feed of {self._spec}, "
+                             f"got {_feed_spec(batch)}")
+        if _state_ptrs(state) != self._ptrs:
+            raise ValueError("this train step was captured on other state tensors; build "
+                             "a new step with build_train_step for this state")
+        for k, buf in self.inputs.items():
+            buf.copy_(batch[k])
+        self.graph.replay()
+        for wrapper, n in self._launches:
+            wrapper.launches += n
+        return state, {k: v.clone() for k, v in self.metrics.items()}
+
+    def _capture(self, state: dict, batch: dict):
+        device = self.model.device
+        self._spec = _feed_spec(batch)
+        self.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                       for k, v in batch.items()}
+        for k, buf in self.inputs.items():
+            buf.copy_(batch[k])
+        (state, metrics), here = _warm_up(lambda: self.step(state, self.inputs), device)
+        for v in metrics.values():
+            v.record_stream(here)
+        graph, (_, self.metrics), self._launches = _capture_graph(
+            lambda: self.step(state, self.inputs))
+        self.nodes = graph_nodes(graph)
+        self._ptrs = _state_ptrs(state)
+        self.graph = graph
+        return state, metrics
 
 
 # ------------------------------------------------------------------ serving
@@ -232,23 +384,11 @@ class GraphDecode:
         self.tokens = torch.empty(tokens.shape, dtype=torch.int32, device=device)
         self.tokens.copy_(tokens)
         self.pos = position(cache_pos, device).clone()
-        here = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            logits, _ = model.decode_step(caches, self.tokens, self.pos)
-        here.wait_stream(side)
+        (logits, _), here = _warm_up(
+            lambda: model.decode_step(caches, self.tokens, self.pos), device)
         logits.record_stream(here)
-        wrappers = list(kernel_wrappers().values())
-        before = [w.launches for w in wrappers]
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
-            self.logits, _ = model.decode_step(caches, self.tokens, self.pos)
-        graph.instantiate()
-        self._launches = [(w, w.launches - n) for w, n in zip(wrappers, before)
-                          if w.launches != n]
-        for w, n in zip(wrappers, before):
-            w.launches = n
+        graph, (self.logits, _), self._launches = _capture_graph(
+            lambda: model.decode_step(caches, self.tokens, self.pos))
         self.nodes = graph_nodes(graph)
         self._ptrs = _cache_ptrs(caches)
         self.graph = graph
@@ -276,7 +416,4 @@ def build_decode_step(model: Model):
     once, from those two facts. ``decode.captured`` is False for the eager
     step, and for the graph step says whether its first call has captured.
     """
-    ctx = current_ctx()
-    if model.device.type == "cuda" and (ctx is None or math.prod(ctx.mesh.shape.values()) == 1):
-        return GraphDecode(model)
-    return _eager_decode(model)
+    return GraphDecode(model) if _one_card(model) else _eager_decode(model)
