@@ -1520,7 +1520,8 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         print(f"tokens/sec {summary['tokens_per_s']:.1f} (whole run), "
               f"{summary['steady_tokens_per_s']:.1f} (steps 2-{len(losses)}); "
               f"max_memory_allocated {peak / 2**30:.2f} GiB; "
-              f"overlap fraction {stats.overlap_fraction:.4f}; "
+              f"stager wait {1e3 * stats.wait_s / max(len(losses), 1):.3f} ms a batch "
+              f"(host clock); "
               f"{stats.bytes_to_device / 1e6:.3f} MB to device over {stats.steps} staged "
               f"batches; kernel launches {launches}")
         gathers = launches["chunk_gather_train"]
@@ -1557,7 +1558,7 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         "tokens_per_s": summary["tokens_per_s"],
         "steady_tokens_per_s": summary["steady_tokens_per_s"],
         "max_memory_allocated_gib": peak / 2**30,
-        "overlap_fraction": stats.overlap_fraction,
+        "stager_wait_ms_a_batch": 1e3 * stats.wait_s / max(len(losses), 1),
         "mb_to_device": stats.bytes_to_device / 1e6, "staged_batches": stats.steps,
     }
 
@@ -3208,8 +3209,9 @@ def example_training() -> dict:
             no_ckpt = steady_tokens / (steady_s - summary["ckpt_s"])
             print(f"launches {launches}; steady tokens/s {summary['steady_tokens_per_s']:.1f} "
                   f"(whole run {summary['tokens_per_s']:.1f}; {no_ckpt:.1f} without the "
-                  f"{summary['ckpt_s']:.2f} s of checkpoint saves); overlap fraction "
-                  f"{stats.overlap_fraction:.4f}; {stats.steps} staged batches")
+                  f"{summary['ckpt_s']:.2f} s of checkpoint saves); stager wait "
+                  f"{1e3 * stats.wait_s / max(len(losses), 1):.3f} ms a batch (host clock); "
+                  f"{stats.steps} staged batches")
             if gathers == 0 or gathers != stats.steps or gathers != stats.kernel_steps:
                 fail(f"kernel launches {gathers} != staged batches {stats.steps}")
             if len(losses) != steps - summary["start"] or not printed or not all(
@@ -3230,7 +3232,7 @@ def example_training() -> dict:
                          "steady_tokens_per_s": summary["steady_tokens_per_s"],
                          "ckpt_s": summary["ckpt_s"],
                          "steady_tokens_per_s_without_ckpt": no_ckpt,
-                         "overlap_fraction": stats.overlap_fraction,
+                         "stager_wait_ms_a_batch": 1e3 * stats.wait_s / max(len(losses), 1),
                          "staged_batches": stats.steps})
             del staged
             torch.cuda.empty_cache()

@@ -223,8 +223,8 @@ def train(args: argparse.Namespace, *, on_batch=None, store=None) -> dict:
         stager.close()
         d = summary["device_stats"] = stager.stats
         print(f"device path {args.device_path}: staged {d.steps} batches "
-              f"({d.bytes_to_device / 1e6:.1f} MB to device), "
-              f"overlap fraction {d.overlap_fraction:.2f}")
+              f"({d.bytes_to_device / 1e6:.1f} MB to device), stager wait "
+              f"{1e3 * d.wait_s / max(steps_run, 1):.2f} ms a batch (host clock)")
     if steps_run:
         print(f"throughput: {summary['tokens_per_s']:,.0f} tokens/sec "
               f"over {steps_run} step(s)")

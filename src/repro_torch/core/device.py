@@ -32,7 +32,10 @@ the side stream's work on it is done.
 
 Per-step accounting lands in :class:`~repro_torch.core.stats.StepIO`
 (``stage_s`` / ``stage_wait_s``) and the stream-level aggregate in
-:class:`~repro_torch.core.stats.DeviceStats` (``overlap_fraction``).
+:class:`~repro_torch.core.stats.DeviceStats` (``loss_tokens`` among them).
+With a tracer installed, ``stager.stage`` carries the device interval of
+the batch's copy and gather on the side stream, and ``stager.wait`` the
+consumer's wait for it; both carry the batch's ``step`` (and ``epoch``).
 """
 
 from __future__ import annotations
@@ -51,17 +54,19 @@ from ..kernels.chunk_gather.ops import check_indices, chunk_gather_train
 from ..kernels.common import resolve_device, round_up
 from .stats import DeviceStats
 
-__all__ = ["DeviceStager", "HostPack", "pack_records"]
+__all__ = ["DeviceStager", "HostPack", "pack_loss_tokens", "pack_records"]
 
 _GRID_KEYS = ("tokens", "targets", "loss_mask")
 _READY = "_ready"  # per-batch CUDA event, private to stage() -> stream()
+_LOSS = "_loss_tokens"  # the batch's loss-bearing tokens, likewise
 
 
 class HostPack(dict):
     """Host-side staging payload for the on-device gather: one slot-padded
     token buffer (``slot_tokens``), the clipped record lengths and the
     redirection index table, plus the batch metadata that rides along
-    (``step`` / ``io_by_node`` / ``returned`` / ``seq_len`` / ``pad_id``)."""
+    (``step`` / ``epoch`` / ``io_by_node`` / ``returned`` / ``seq_len`` /
+    ``pad_id`` / ``loss_tokens``)."""
 
 
 def pack_records(
@@ -97,6 +102,18 @@ def pack_records(
         slot_tokens[s, :n] = rec[:n]
         lens[s] = n
     return slot_tokens, lens, inv.astype(np.int32)
+
+
+def pack_loss_tokens(lens: np.ndarray, idx: np.ndarray, seq_len: int) -> int:
+    """Loss-bearing tokens of a packed batch: ``min(len, S+1) - 1`` a row,
+    the ones of the loss mask the gather will make from it."""
+    per_row = np.asarray(lens, dtype=np.int64)[np.asarray(idx)] - 1
+    return int(np.clip(per_row, 0, seq_len).sum())
+
+
+def _ids(item) -> dict:
+    """The batch's identifiers for its spans (-1 where it has none)."""
+    return {"step": int(item.get("step", -1)), "epoch": int(item.get("epoch", -1))}
 
 
 class DeviceStager:
@@ -188,9 +205,12 @@ class DeviceStager:
                 "DeviceStager(use_kernel=False) cannot stage HostPacks; "
                 "feed it assembled batches (epoch_async) instead"
             )
-        ready = None
+        ready = mark = None
+        tracer = trace.get()
         # torch.cuda.stream(None) is a no-op: the CPU stages inline.
         with torch.cuda.stream(self._side):
+            if tracer is not None:
+                mark = tracer.device_mark(self.device)
             if gather:
                 check_indices(item["idx"], item["slot_tokens"].shape[0])
                 slot, lens, idx = self._put_pack(item)
@@ -204,20 +224,24 @@ class DeviceStager:
                     + item["lens"].nbytes
                     + item["idx"].nbytes
                 )
+                loss_tokens = item.get("loss_tokens")
+                if loss_tokens is None:
+                    loss_tokens = pack_loss_tokens(item["lens"], item["idx"],
+                                                   int(item["seq_len"]))
                 self.stats.kernel_steps += 1
             else:
                 tokens, targets, loss_mask = (self._put(item[k]) for k in _GRID_KEYS)
                 moved = sum(np.asarray(item[k]).nbytes for k in _GRID_KEYS)
+                loss_tokens = int(np.count_nonzero(item["loss_mask"]))
             if self._cuda:
                 ready = torch.cuda.Event()
                 ready.record(self._side)
         stage_s = time.perf_counter() - t0
-        tracer = trace.get()
         if tracer is not None:
             tracer.complete(
                 "stager.stage", "stage", t0, stage_s,
-                {"step": int(item.get("step", -1)), "bytes": int(moved),
-                 "kernel": bool(gather)},
+                {**_ids(item), "bytes": int(moved), "kernel": bool(gather)},
+                mark=mark,
             )
         # Copy the StepIO entries before annotating: replay-engine batches
         # share them with the EpochPlan, which must stay reusable.
@@ -228,12 +252,13 @@ class DeviceStager:
         if io:
             io[min(io)].stage_s = stage_s
         out = dict(item)
-        for k in ("slot_tokens", "lens", "idx", "seq_len", "pad_id"):
+        for k in ("slot_tokens", "lens", "idx", "seq_len", "pad_id", "loss_tokens"):
             out.pop(k, None)
         out.update(
             tokens=tokens, targets=targets, loss_mask=loss_mask,
             io_by_node=io, stage_s=stage_s, stage_wait_s=0.0,
         )
+        out[_LOSS] = int(loss_tokens)
         if ready is not None:
             out[_READY] = ready
         self.stats.steps += 1
@@ -315,13 +340,15 @@ class DeviceStager:
                 tracer = trace.get()
                 if tracer is not None:
                     # The slice of staging the double buffer failed to hide.
-                    tracer.complete("stager.wait", "stage", t0, wait)
+                    tracer.complete("stager.wait", "stage", t0, wait,
+                                    None if item is end else _ids(item))
                 if item is end:
                     break
                 with self._lock:
                     self._inflight.remove(item)
                 self._hand_over(item)
                 self.stats.wait_s += wait
+                self.stats.loss_tokens += item.pop(_LOSS)
                 item["stage_wait_s"] = wait
                 io = item["io_by_node"]
                 if io:
@@ -340,7 +367,7 @@ class DeviceStager:
         with self._lock:
             stranded, self._inflight = self._inflight, []
         for batch in stranded:
-            for k in (*_GRID_KEYS, _READY):
+            for k in (*_GRID_KEYS, _READY, _LOSS):
                 batch.pop(k, None)
             self.stats.buffers_released += 1
 

@@ -222,7 +222,7 @@ class RedoxLoader:
         if stager is None:
             stager = DeviceStager()
         def pack(*item):
-            return self._pack(*item, row_pad=stager.row_pad)
+            return self._pack(*item, row_pad=stager.row_pad, epoch=epoch)
 
         packs = self._pipelined(epoch, plan=plan, assemble=pack, track=False)
         for batch in stager.stream(packs):
@@ -316,11 +316,13 @@ class RedoxLoader:
         returned: "list[np.ndarray] | None" = None,
         *,
         row_pad: int = 8,
+        epoch: int = -1,
     ):
-        """Decode payloads into a HostPack for the device gather path."""
-        from .device import HostPack, pack_records
+        """Decode payloads into a HostPack for the device gather path,
+        with the count of its loss-bearing tokens."""
+        from .device import HostPack, pack_loss_tokens, pack_records
 
-        with trace.span("loader.pack", "decode", step=int(step)):
+        with trace.span("loader.pack", "decode", step=int(step), epoch=epoch) as span:
             flat = [decode_record(p) for p in payloads]
             ret = (
                 np.concatenate(returned)
@@ -330,10 +332,13 @@ class RedoxLoader:
                 flat, ret if ret.size else None,
                 seq_len=self.seq_len, pad_id=self.pad_id, row_pad=row_pad,
             )
+            loss_tokens = pack_loss_tokens(lens, idx, self.seq_len)
+            span.note(loss_tokens=loss_tokens)
         return HostPack(
             slot_tokens=slot_tokens, lens=lens, idx=idx,
             seq_len=self.seq_len, pad_id=self.pad_id,
-            step=step, io_by_node=io_by_node, returned=ret,
+            step=step, epoch=epoch, io_by_node=io_by_node, returned=ret,
+            loss_tokens=loss_tokens,
         )
 
     def _produce(self, epoch: int, *, plan=None):

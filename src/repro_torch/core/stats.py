@@ -191,12 +191,13 @@ class DeviceStats(StatsDict):
     """Host→device staging counters for one :class:`DeviceStager` stream.
 
     ``stage_s`` is wall time the staging thread spent assembling + shipping
-    batches (decode/pack, ``device_put``, gather-kernel dispatch);
-    ``wait_s`` is the consumer time actually blocked on a staged batch —
-    the part of staging the double buffer failed to hide.
-    ``overlap_fraction`` is therefore the headline number: 1.0 means the
-    device path is free, 0.0 means it is fully serialized (the naive
-    per-step copy behaves like 0.0 by construction).
+    batches (decode/pack, the host→device copy, gather-kernel dispatch);
+    ``wait_s`` is the consumer time actually blocked on a staged batch.
+    Both are host clocks: how long the card itself waited is the
+    ``stager.wait`` span against the device intervals of the trainer's
+    spans (``bench/metrics/data.stall_share.py``). ``loss_tokens`` counts
+    the loss-bearing tokens of the batches handed to the consumer, as the
+    pack counts them on the host (``min(len, S+1) - 1`` a row).
     """
 
     steps: int = 0
@@ -205,17 +206,7 @@ class DeviceStats(StatsDict):
     wait_s: float = 0.0        # consumer wall time blocked on the queue
     kernel_steps: int = 0      # steps assembled on-device by chunk_gather
     buffers_released: int = 0  # staged-but-unconsumed batches freed at teardown
-
-    @property
-    def overlap_fraction(self) -> float:
-        """Share of staging time hidden behind compute, in [0, 1].
-
-        Zero staging time means nothing was staged, so nothing was
-        overlapped — report 0.0 rather than dividing by zero (or the old,
-        misleading 1.0 for an idle stager)."""
-        if self.stage_s <= 0.0:
-            return 0.0
-        return max(0.0, 1.0 - self.wait_s / self.stage_s)
+    loss_tokens: int = 0       # loss-bearing tokens handed to the consumer
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,11 +43,10 @@ import torch.nn.functional as F
 from ..checkpoint.ckpt import AsyncCheckpointer, latest_step, restore_checkpoint
 from ..configs import RunConfig, get_config, list_archs, reduced
 from ..core import ChunkStore, RedoxLoader, SessionSpec
-from ..core.stats import PipelineTimeModel, StepIO
 from ..data import SyntheticTokenDataset
 from ..kernels.common import resolve_device
 from ..models import build_model
-from ..obs import MetricsRegistry, attribution, format_report, model_columns, trace
+from ..obs import MetricsRegistry, attribution, format_report, trace
 from ..optim.optimizers import make_optimizer
 from ..service.transport import RedoxClient
 from ..train.train_step import build_train_step, init_train_state
@@ -113,15 +112,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-#: Nominal NAS storage/network profile for the DESIGN §6 model columns
-#: printed next to the measured attribution under ``--trace`` (as in the
-#: reference launcher).
-TRACE_TIME_MODEL = PipelineTimeModel(
-    disk_bw=200e6, file_overhead=8e-3, chunk_overhead=8e-3,
-    net_bw=1e9, net_latency=2e-4,
-)
-
-
 def _local_metrics(loader, store, stager) -> MetricsRegistry:
     """Registry over a local data plane's live stats objects."""
     reg = MetricsRegistry()
@@ -147,7 +137,18 @@ def _feed(batch, device, cfg) -> dict:
     the reference launcher builds them: ``frame`` feeds one-hot frames of
     ``tokens % frontend_dim`` in place of the tokens; ``patch`` feeds zero
     patch embeddings before them, and its targets and loss mask gain
-    ``frontend_len`` leading zeros."""
+    ``frontend_len`` leading zeros. With a tracer installed this is a
+    ``train.feed`` device span carrying the batch's ``step`` (and
+    ``epoch``)."""
+    tracer = trace.get()
+    if tracer is None:
+        return _build_feed(batch, device, cfg)
+    with tracer.device_span("train.feed", "compute", device, step=int(batch.get("step", -1)),
+                            epoch=int(batch.get("epoch", -1))):
+        return _build_feed(batch, device, cfg)
+
+
+def _build_feed(batch, device, cfg) -> dict:
     out = {}
     for k in _FEED_KEYS:
         v = batch[k]
@@ -173,7 +174,10 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
     ``on_batch(step, feed)``, when given, sees every batch just before its
     train step. Returns a summary: per-step ``losses``, ``steps``,
     ``tokens_per_s`` (whole run) and ``steady_tokens_per_s`` (after the
-    first step), the stager's ``device_stats``, the ``spec`` of the data
+    first step), both in positions (B·S, padding included), the stager's
+    ``device_stats`` (its ``loss_tokens`` the loss-bearing tokens handed to
+    the trainer) and ``loss_tokens_per_s`` from them (None without a
+    stager), the ``spec`` of the data
     plane (with ``--data-server``, the server's echo of it) and the
     ``workdir``, the autotuner's ``autotune`` choice (None without
     ``--autotune``), and ``elapsed_s``.
@@ -292,7 +296,6 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
     step = int(start or 0)
     run_steps = 0
     losses = []
-    io_grid = [[] for _ in range(spec.num_nodes)] if tracer is not None else None
     suspended = False
     t_first = None
     epoch, t0 = (loader.resume_point or (0, 0))[0], time.time()
@@ -303,21 +306,8 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
             feed = _feed(batch, device, cfg)
             if on_batch is not None:
                 on_batch(step, feed)
-            if tracer is None:
-                state, metrics = step_fn(state, feed)
-            else:
-                # Force the step inside the span so "compute" reflects real
-                # device time, not the enqueue (tracing is opt-in, so the
-                # pipeline bubble this sync adds is acceptable).
-                with trace.span("train.step", "compute", step=step):
-                    state, metrics = step_fn(state, feed)
-                    if cuda:
-                        torch.cuda.synchronize(device)
+            state, metrics = step_fn(state, feed)
             losses.append(metrics["loss"].clone())  # the step may reuse its buffers
-            if io_grid is not None:
-                by_node = batch.get("io_by_node") or {}
-                for r in range(spec.num_nodes):
-                    io_grid[r].append(by_node.get(r, StepIO()))
             step += 1
             run_steps += 1
             if step % 10 == 0 or step == 1:
@@ -334,6 +324,8 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
                 loader.suspend(data_dir)
                 suspended = True
                 break
+            if step >= args.steps:
+                break  # before the stager hands over a batch no step trains
         epoch += 1
     ckpt.wait()
     if cuda:
@@ -349,19 +341,22 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
             (run_steps - 1) * toks_per_step / max(t_end - t_first, 1e-9)
             if run_steps > 1 else None
         ),
-        device_stats=None, spec=spec, workdir=workdir, device=str(device),
-        autotune=choice,
+        device_stats=None, loss_tokens_per_s=None, spec=spec, workdir=workdir,
+        device=str(device), autotune=choice,
     )
     if stager is not None:
         stager.close()
         d = stager.stats
         summary["device_stats"] = d
+        summary["loss_tokens_per_s"] = d.loss_tokens / max(elapsed, 1e-9)
         print(f"device path {args.device_path}: staged {d.steps} batches "
-              f"({d.bytes_to_device / 1e6:.1f} MB to device), "
-              f"overlap fraction {d.overlap_fraction:.2f}")
+              f"({d.bytes_to_device / 1e6:.1f} MB to device), stager wait "
+              f"{1e3 * d.wait_s / max(run_steps, 1):.2f} ms a batch (host clock)")
     if run_steps:
-        print(f"throughput: {summary['tokens_per_s']:,.0f} tokens/sec "
-              f"over {run_steps} step(s)")
+        rate = f"throughput: {summary['tokens_per_s']:,.0f} positions/sec"
+        if summary["loss_tokens_per_s"] is not None:
+            rate += f", {summary['loss_tokens_per_s']:,.0f} loss-bearing tokens/sec"
+        print(f"{rate} over {run_steps} step(s)")
     if args.metrics:
         if args.data_server is not None:
             print(loader.metrics()["text"], end="")  # server-side registry
@@ -372,13 +367,7 @@ def train(args: argparse.Namespace, *, on_batch=None) -> dict:
         print(f"trace: {len(tracer)} events ({tracer.dropped} dropped) -> "
               f"{out}; open in the Perfetto UI or chrome://tracing")
         att = attribution(tracer.events(), wall_s=elapsed)
-        cols = None
-        if run_steps and any(io_grid):
-            cols = model_columns(
-                io_grid, TRACE_TIME_MODEL,
-                att["busy_s"].get("compute", 0.0) / run_steps,
-            )
-        print(format_report(att, model=cols, measured_wall_s=elapsed))
+        print(format_report(att, measured_wall_s=elapsed))
         trace.disable()
     if args.data_server is not None:
         loader.close()

@@ -10,12 +10,12 @@ Three pieces (see DESIGN.md §13):
   ``register_stats``; one ``collect()`` snapshot, Prometheus text
   ``exposition()``, served live over the transport ``metrics`` RPC.
 * :mod:`repro.obs.report` — fold a trace into an overlap-aware per-stage
-  wall-time breakdown and compare against the DESIGN §6 time model.
+  wall-time breakdown, device spans counted by their device intervals.
 """
 
 from repro_torch.obs import tracer as trace
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
-from repro_torch.obs.report import STAGES, attribution, format_report, model_columns
+from repro_torch.obs.report import STAGES, attribution, format_report
 from repro_torch.obs.tracer import Tracer, tracing
 
 __all__ = [
@@ -27,7 +27,6 @@ __all__ = [
     "Tracer",
     "attribution",
     "format_report",
-    "model_columns",
     "trace",
     "tracing",
 ]

@@ -24,10 +24,11 @@ read as planning, while a live walk (no plan span active) still lands on
 encloses everything a pump round drives). Residual uncovered time is
 ``idle_s`` (scheduler gaps, uninstrumented work).
 
-``model_columns`` prints the measured stages against the DESIGN §6
-:class:`~repro.core.stats.PipelineTimeModel` prediction computed from the
-same run's :class:`~repro.core.stats.StepIO` counters — the
-measured-vs-model view the predictive-autotuning roadmap item consumes.
+A span that carries a device interval (``args["dev_ts"]`` /
+``["dev_dur"]``, :func:`repro_torch.obs.tracer.device_span`) counts by
+that interval, not by its host time: ``train.step`` then makes
+``compute`` the time the card ran the step, with no synchronisation in
+the traced run.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ __all__ = [
     "STAGES",
     "attribution",
     "format_report",
-    "model_columns",
 ]
 
 #: Attribution priority, highest first. Event categories not listed fold
@@ -58,6 +58,8 @@ def _intervals_by_stage(events) -> "dict[str, list[tuple[float, float]]]":
     for name, cat, ts, dur, tid, args in events:
         if dur < 0:
             continue  # instant events carry no duration
+        if args and "dev_dur" in args:
+            ts, dur = args["dev_ts"], args["dev_dur"]
         stage = cat if cat in STAGES else "other"
         by.setdefault(stage, []).append((ts, ts + dur))
     return by
@@ -132,45 +134,13 @@ def attribution(events, *, wall_s: "float | None" = None) -> dict:
     }
 
 
-def model_columns(per_node_step_io, model, compute_per_step: float = 0.0) -> dict:
-    """DESIGN §6 prediction from the run's own StepIO counters.
-
-    ``per_node_step_io`` is the ``list[list[StepIO]]`` grid an
-    :class:`~repro.core.EpochResult` carries (or the launcher accumulates
-    from ``batch["io_by_node"]``). Returns per-component predicted seconds
-    plus the pipelined epoch-time bound, keyed to line up with the
-    measured stages."""
-    chunk_s = bytes_s = net_s = 0.0
-    for steps in per_node_step_io:
-        for io in steps:
-            chunk_s += (
-                io.file_reads * model.file_overhead
-                + io.chunk_loads * model.chunk_overhead
-            )
-            bytes_s += io.disk_bytes / model.disk_bw
-            net_s += (
-                io.net_messages * model.net_latency + io.net_bytes / model.net_bw
-            )
-    return {
-        "read": chunk_s + bytes_s,
-        "net": net_s,
-        "compute": compute_per_step * max(
-            (len(s) for s in per_node_step_io), default=0
-        ),
-        "epoch": model.epoch_time(per_node_step_io, compute_per_step),
-    }
-
-
-def format_report(
-    att: dict, *, model: "dict | None" = None, measured_wall_s: "float | None" = None
-) -> str:
-    """Render the attribution (and optional model columns) as a table."""
+def format_report(att: dict, *, measured_wall_s: "float | None" = None) -> str:
+    """Render the attribution as a table."""
     wall = measured_wall_s if measured_wall_s is not None else att["wall_s"]
     lines = [
         f"epoch wall time: {wall:.3f}s "
         f"(trace extent {att['wall_s']:.3f}s, {att['spans']} spans)",
-        f"{'stage':<10} {'busy_s':>9} {'excl_s':>9} {'excl_%':>7}"
-        + ("  model_s" if model else ""),
+        f"{'stage':<10} {'busy_s':>9} {'excl_s':>9} {'excl_%':>7}",
     ]
     stages = [s for s in (*STAGES, "other") if s in att["busy_s"]]
     for stage in stages:
@@ -179,8 +149,6 @@ def format_report(
             f"{stage:<10} {att['busy_s'][stage]:>9.3f} {excl:>9.3f} "
             f"{100.0 * excl / wall if wall else 0.0:>6.1f}%"
         )
-        if model and stage in model:
-            row += f"  {model[stage]:>7.3f}"
         lines.append(row)
     idle = att["idle_s"]
     lines.append(
@@ -192,6 +160,4 @@ def format_report(
         f"attributed (exclusive + idle): {covered:.3f}s "
         f"of {att['wall_s']:.3f}s trace extent"
     )
-    if model and "epoch" in model:
-        lines.append(f"DESIGN §6 pipelined epoch-time bound: {model['epoch']:.3f}s")
     return "\n".join(lines)

@@ -12,9 +12,29 @@ API::
     trace.instant("residency.evict", "read", chunk=k)
 
 and pay only a module-attribute load + ``None`` check when tracing is off
-— the disabled path allocates nothing and takes no locks, which is what
-keeps the instrumented hot loops (protocol step, ring write, staging)
-inside the <5% overhead budget pinned by ``tests/test_obs.py``.
+— the disabled path allocates nothing, takes no locks and imports no
+torch, which is what keeps the instrumented hot loops (protocol step, ring
+write, staging) cheap (``tests/test_torch_obs.py`` pins it).
+
+A span around work queued on the card also carries that work's *device
+interval*::
+
+    tracer = trace.get()
+    if tracer is None:
+        graph.replay()
+    else:
+        with tracer.device_span("train.step", "compute", device, step=n):
+            graph.replay()       # queued on the current stream
+
+records a timing ``torch.cuda.Event`` on the current stream at entry and
+another at exit, and never synchronises. The events are resolved when the
+tracer is read (:meth:`Tracer.events`, :meth:`Tracer.to_chrome`,
+:meth:`Tracer.dump`), after the caller has synchronised, into the span's
+args ``dev_ts`` / ``dev_dur``: seconds on the tracer's own clock, through
+a linear map from two anchor events on a private stream with no queued
+work (one at the first device span, one at read-out). Off the card a
+device span is a host span; while the current stream captures a CUDA
+graph it records nothing.
 
 Design notes:
 
@@ -25,6 +45,11 @@ Design notes:
 * timestamps are ``perf_counter`` seconds relative to the tracer's epoch;
   export converts to the microseconds Chrome's ``chrome://tracing`` and
   Perfetto's trace processor expect (``ph: "X"`` complete events).
+* ``torch.profiler`` stamps its events in CLOCK_REALTIME nanoseconds
+  (``time.time_ns``); ``perf_counter`` is CLOCK_MONOTONIC. The tracer
+  takes the offset between the two at creation (the tightest of several
+  paired reads), so :meth:`Tracer.realtime_ns` puts any of its times on
+  the profiler's clock, and the Chrome export carries it in ``otherData``.
 * spans nest naturally: each ``with`` records one complete event at exit,
   and the viewer reconstructs the stack per thread from containment.
 """
@@ -47,6 +72,11 @@ __all__ = [
     "tracing",
 ]
 
+#: Args key of a device span's unresolved ``(start, end)`` events.
+_DEV = "_dev"
+#: ``Tracer.device_mark``'s answer while the current stream captures.
+_CAPTURING = object()
+
 
 class _NullSpan:
     """Shared, reentrant no-op context manager for the disabled path."""
@@ -58,6 +88,9 @@ class _NullSpan:
 
     def __exit__(self, *exc):
         return False
+
+    def note(self, **args) -> None:
+        pass
 
 
 _NULL_SPAN = _NullSpan()
@@ -85,6 +118,89 @@ class _Span:
         )
         return False
 
+    def note(self, **args) -> None:
+        """Add args known only inside the span (a count of its work)."""
+        self.args = {**(self.args or {}), **args}
+
+
+class _DeviceSpan(_Span):
+    """A span that also brackets the work it queues on ``device``'s
+    current stream with two timing events."""
+
+    __slots__ = ("_device", "_mark")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args, device):
+        super().__init__(tracer, name, cat, args)
+        self._device = device
+
+    def __enter__(self):
+        self._mark = self._tracer.device_mark(self._device)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self._mark is not _CAPTURING:
+            self._tracer.complete(
+                self.name, self.cat, self._t0, t1 - self._t0, self.args,
+                mark=self._mark,
+            )
+        return False
+
+
+def _realtime_offset_ns(pairs: int = 16) -> int:
+    """CLOCK_REALTIME minus ``perf_counter`` in ns, from the tightest of
+    ``pairs`` reads of the one between two reads of the other."""
+    best_width, offset = None, 0
+    for _ in range(pairs):
+        a = time.perf_counter_ns()
+        r = time.time_ns()
+        b = time.perf_counter_ns()
+        if best_width is None or b - a < best_width:
+            best_width, offset = b - a, r - (a + b) // 2
+    return offset
+
+
+class _DeviceClock:
+    """The device-to-host map of one tracer: an anchor event recorded on a
+    private, otherwise idle stream at the first device span, and one at
+    read-out; an event's host time is the first anchor's plus its elapsed
+    device time scaled by the two anchors' host over device seconds.
+    ``elapsed_time`` is float32 milliseconds: a few microseconds a minute
+    after the first anchor."""
+
+    def __init__(self, device):
+        import torch
+
+        # A high-priority pool stream: the program's own streams come from
+        # the default-priority pool, so no work is ever queued on this one.
+        self.stream = torch.cuda.Stream(device, priority=-1)
+        self.first, self.first_s = self._anchor()
+        self.scale, self.drift_s = 1.0, 0.0
+
+    def _anchor(self):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        a = time.perf_counter()
+        ev.record(self.stream)
+        return ev, (a + time.perf_counter()) / 2
+
+    def read_out(self) -> None:
+        """Record the second anchor, wait for it, and refit the map."""
+        last, last_s = self._anchor()
+        last.synchronize()
+        dev_s = self.first.elapsed_time(last) / 1e3
+        if dev_s > 0:
+            self.scale = (last_s - self.first_s) / dev_s
+            self.drift_s = (last_s - self.first_s) - dev_s
+
+    def resolve(self, start, end) -> tuple:
+        """(host ``perf_counter`` start, seconds) of a device interval."""
+        end.synchronize()
+        t0 = self.first_s + self.first.elapsed_time(start) / 1e3 * self.scale
+        return t0, start.elapsed_time(end) / 1e3 * self.scale
+
 
 class Tracer:
     """Thread-safe bounded ring of trace events."""
@@ -95,7 +211,12 @@ class Tracer:
         self.capacity = int(capacity)
         self._events: deque = deque(maxlen=self.capacity)
         self._recorded = 0
-        self._epoch = time.perf_counter()
+        epoch_ns = time.perf_counter_ns()
+        self._epoch = epoch_ns / 1e9
+        #: ``time.time_ns()`` at this tracer's time 0: the profiler's clock.
+        self.realtime_origin_ns = epoch_ns + _realtime_offset_ns()
+        self._clock: "_DeviceClock | None" = None
+        self._clock_lock = threading.Lock()
         self._tid_lock = threading.Lock()
         self._tids: "dict[int, int]" = {}
         self._tid_names: "dict[int, str]" = {}
@@ -116,10 +237,43 @@ class Tracer:
     def span(self, name: str, cat: str = "", **args) -> _Span:
         return _Span(self, name, cat, args or None)
 
+    def device_span(self, name: str, cat: str, device, **args) -> _Span:
+        return _DeviceSpan(self, name, cat, args or None, device)
+
+    def device_mark(self, device):
+        """Start a device interval on ``device``'s current stream: a
+        ``(stream, event)`` mark for :meth:`complete`, None off the card,
+        and ``_CAPTURING`` while the current stream captures a graph (an
+        event recorded there would join the graph)."""
+        if getattr(device, "type", device) != "cuda":
+            return None
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            return _CAPTURING
+        if self._clock is None:
+            with self._clock_lock:
+                if self._clock is None:
+                    self._clock = _DeviceClock(device)
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return stream, start
+
     def complete(
-        self, name: str, cat: str, t0: float, dur: float, args=None
+        self, name: str, cat: str, t0: float, dur: float, args=None, *,
+        mark=None,
     ) -> None:
-        """Record a finished span: ``t0`` is absolute ``perf_counter``."""
+        """Record a finished span: ``t0`` is absolute ``perf_counter``.
+        ``mark`` (from :meth:`device_mark`) closes a device interval with
+        an event on the mark's stream, resolved at read-out."""
+        if mark is not None:
+            import torch
+
+            stream, start = mark
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            args = {**(args or {}), _DEV: (start, end)}
         self._events.append(
             (name, cat, t0 - self._epoch, dur, self._tid(), args)
         )
@@ -140,8 +294,32 @@ class Tracer:
 
     def events(self) -> "list[tuple]":
         """Snapshot of the ring: ``(name, cat, ts_s, dur_s, tid, args)``
-        tuples (``dur_s < 0`` marks an instant event)."""
-        return list(self._events)
+        tuples (``dur_s < 0`` marks an instant event). Device spans have
+        their intervals resolved into ``args["dev_ts"]`` / ``["dev_dur"]``
+        (seconds, this tracer's clock), waiting for their events: read
+        after the device work is done."""
+        snapshot = list(self._events)
+        pending = [ev[5] for ev in snapshot if ev[5] and _DEV in ev[5]]
+        if pending:
+            self._clock.read_out()
+            for args in pending:
+                t0, dur = self._clock.resolve(*args.pop(_DEV))
+                args["dev_ts"], args["dev_dur"] = t0 - self._epoch, dur
+        return snapshot
+
+    def realtime_ns(self, ts: float) -> int:
+        """A time of this tracer (seconds from its epoch) on the profiler's
+        clock, CLOCK_REALTIME ns."""
+        return self.realtime_origin_ns + round(ts * 1e9)
+
+    @property
+    def device_clock(self) -> "dict | None":
+        """The device-to-host map as last fitted (None before a device
+        span): host over device seconds between the anchors, and their
+        difference (the device clock's drift over the traced span)."""
+        if self._clock is None:
+            return None
+        return {"scale": self._clock.scale, "drift_s": self._clock.drift_s}
 
     def clear(self) -> None:
         self._events.clear()
@@ -156,7 +334,7 @@ class Tracer:
                 "ph": "M", "pid": 0, "tid": tid, "name": "thread_name",
                 "args": {"name": tname},
             })
-        for name, cat, ts, dur, tid, args in self._events:
+        for name, cat, ts, dur, tid, args in self.events():
             ev = {
                 "name": name,
                 "cat": cat or "default",
@@ -176,7 +354,12 @@ class Tracer:
         return {
             "traceEvents": trace_events,
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": self.dropped},
+            "otherData": {
+                "dropped_events": self.dropped,
+                # ts 0 in CLOCK_REALTIME ns, torch.profiler's clock
+                "realtime_origin_ns": self.realtime_origin_ns,
+                "device_clock": self.device_clock,
+            },
         }
 
     def dump(self, path: "str | Path") -> Path:

@@ -46,6 +46,7 @@ from ..kernels.common import graph_nodes, kernel_wrappers
 from ..models.attention import position, quantize_kv
 from ..models.common import flatten_tree
 from ..models.transformer import ATTN_KINDS, Model
+from ..obs import tracer as trace
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 from ..parallel.axes import current_ctx
 from .losses import lm_loss
@@ -94,6 +95,11 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
     function. The choice is made here, once, as :func:`build_decode_step`
     makes it. ``step.captured`` is False for the eager step, and for the
     graph step says whether its first call has captured.
+
+    With a tracer installed each call is a ``train.step`` device span
+    (category ``compute``; args ``step``, the step's own call count, and
+    ``replay``), whose device interval is the step's work on the current
+    stream; a graph's capture records none.
     """
     step = _eager_train_step(model, run_cfg, optimizer)
     return GraphTrain(model, step) if _one_card(model) else step
@@ -144,7 +150,7 @@ def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
                 grads[p] = grads[p] + gp.to(grads[p].dtype)
         return loss / k, metrics, {p: g / k for p, g in grads.items()}
 
-    def train_step(state: dict, batch: dict):
+    def one_step(state: dict, batch: dict):
         params = flatten_tree(state["values"])
         loss, metrics, grads = compute_grads(params, batch)
         if run_cfg.grad_allreduce_dtype:
@@ -155,6 +161,16 @@ def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         state["step"].add_(1)
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
+    def train_step(state: dict, batch: dict):
+        train_step.calls += 1
+        tracer = trace.get()
+        if tracer is None:
+            return one_step(state, batch)
+        with tracer.device_span("train.step", "compute", model.device,
+                                step=train_step.calls, replay=False):
+            return one_step(state, batch)
+
+    train_step.calls = 0
     train_step.captured = False
     return train_step
 
@@ -227,6 +243,11 @@ class GraphTrain:
     :class:`GraphDecode`, each kernel wrapper's ``launches`` gains at every
     replay what capture added, and ``nodes`` counts the graph's device
     operations by kind.
+
+    With a tracer installed, a replay (the static-input copies and the
+    graph) is a ``train.step`` device span with ``replay=True`` and
+    ``step`` this object's call count; the first call's eager step is the
+    eager function's own span, and its capture records nothing.
     """
 
     def __init__(self, model: Model, step):
@@ -234,6 +255,7 @@ class GraphTrain:
         self.step = step
         self.graph = None
         self.nodes: dict = {}
+        self.calls = 0
 
     @property
     def captured(self) -> bool:
@@ -241,6 +263,7 @@ class GraphTrain:
         return self.graph is not None
 
     def __call__(self, state: dict, batch: dict):
+        self.calls += 1
         if self.graph is None:
             return self._capture(state, batch)
         if _feed_spec(batch) != self._spec:
@@ -249,12 +272,21 @@ class GraphTrain:
         if _state_ptrs(state) != self._ptrs:
             raise ValueError("this train step was captured on other state tensors; build "
                              "a new step with build_train_step for this state")
+        tracer = trace.get()
+        if tracer is None:
+            return state, self._replay(batch)
+        with tracer.device_span("train.step", "compute", self.model.device,
+                                step=self.calls, replay=True):
+            return state, self._replay(batch)
+
+    def _replay(self, batch: dict) -> dict:
+        """The static-input copies, the replay and the metrics' copies."""
         for k, buf in self.inputs.items():
             buf.copy_(batch[k])
         self.graph.replay()
         for wrapper, n in self._launches:
             wrapper.launches += n
-        return state, {k: v.clone() for k, v in self.metrics.items()}
+        return {k: v.clone() for k, v in self.metrics.items()}
 
     def _capture(self, state: dict, batch: dict):
         device = self.model.device

@@ -258,6 +258,71 @@ COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
           "launch/hlo_cost.py"]
 
 
+#: Copies the port has since changed, each with the sections (a module's
+#: top-level statements and its classes' members, as ``_sections`` names
+#: them) where it may differ from the reference: the tracer's device spans
+#: and its CLOCK_REALTIME origin, attribution by device intervals with the
+#: DESIGN §6 model columns gone, the stager's loss-token count in place of
+#: its host-clock overlap ratio, and the loader's pack counting its
+#: loss-bearing tokens and carrying its epoch. Every other section stays
+#: the reference's, byte for byte.
+CHANGED = {
+    "core/loader.py": {"RedoxLoader.epoch_device", "RedoxLoader._pack"},
+    "core/stats.py": {"DeviceStats.__doc__", "DeviceStats.loss_tokens",
+                      "DeviceStats.overlap_fraction"},
+    "obs/__init__.py": {"__doc__", "from repro.obs.report", "__all__"},
+    "obs/report.py": {"__doc__", "__all__", "_intervals_by_stage", "model_columns",
+                      "format_report"},
+    "obs/tracer.py": {"__doc__", "__all__", "_DEV", "_CAPTURING", "_NullSpan.note",
+                      "_Span.note", "_DeviceSpan", "_realtime_offset_ns", "_DeviceClock",
+                      "Tracer.__init__", "Tracer.device_span", "Tracer.device_mark",
+                      "Tracer.complete", "Tracer.events", "Tracer.realtime_ns",
+                      "Tracer.device_clock", "Tracer.to_chrome"},
+}
+
+
+def _sections(text: str) -> dict:
+    """A module's source cut into its top-level statements and each class's
+    members, keyed by name (``Class.member``; a docstring ``__doc__``, an
+    import by its module): each section runs from its first line,
+    decorators included, to the line before the next one."""
+    lines = text.splitlines(keepends=True)
+    out: dict = {}
+
+    def key(node) -> str:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            return node.name
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            return node.targets[0].id
+        if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            return node.target.id
+        if (isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)
+                and isinstance(node.value.value, str)):
+            return "__doc__"
+        if isinstance(node, ast.ImportFrom):
+            return f"from {'.' * node.level}{node.module or ''}"
+        if isinstance(node, ast.Import):
+            return f"import {node.names[0].name}"
+        return ast.dump(node)
+
+    def first_line(node) -> int:
+        return min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", ())])
+
+    def walk(body, stop: int, prefix: str) -> None:
+        for i, node in enumerate(body):
+            end = first_line(body[i + 1]) if i + 1 < len(body) else stop
+            name = prefix + key(node)
+            if isinstance(node, ast.ClassDef):
+                end_header, end = first_line(node.body[0]), end
+                out[name] = out.get(name, "") + "".join(lines[first_line(node) - 1:end_header - 1])
+                walk(node.body, end, name + ".")
+            else:
+                out[name] = out.get(name, "") + "".join(lines[first_line(node) - 1:end - 1])
+
+    walk(ast.parse(text).body, len(lines) + 1, "")
+    return out
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_modules_equal_their_reference(rel):
     port = (PORT / rel).read_text().replace("repro_torch", "repro")
@@ -265,4 +330,16 @@ def test_copied_modules_equal_their_reference(rel):
     if rel.endswith("client.py"):  # epoch_device is ported: it stages with torch
         start, end = "    def epoch_device(", "    # ----" + "-" * 57 + " lifecycle"
         port, ref = (s[:s.index(start)] + s[s.index(end):] for s in (port, ref))
-    assert port == ref
+    if rel not in CHANGED:
+        assert port == ref
+        return
+    mine, theirs = _sections(port), _sections(ref)
+    declared = CHANGED[rel]
+    assert declared <= set(mine) | set(theirs), declared - set(mine) - set(theirs)
+    # a changed section changes its members too; blank lines at a section's
+    # end belong to where the next one starts
+    kept = {name for name in set(mine) | set(theirs)
+            if not any(name == c or name.startswith(c + ".") for c in declared)}
+    assert kept <= set(mine) & set(theirs), kept - (set(mine) & set(theirs))
+    for name in kept:
+        assert mine[name].rstrip() == theirs[name].rstrip(), name
