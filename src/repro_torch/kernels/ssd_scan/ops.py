@@ -94,7 +94,7 @@ def _check_tensors(**tensors) -> torch.device:
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
         if t.requires_grad:
             raise RuntimeError(f"ssd_scan has no backward; {name} requires grad "
-                               "(use the model's plain _ssd_chunked for training)")
+                               "(training runs the model's _ssd_chunked)")
         if device is None:
             device = t.device
         elif t.device != device:

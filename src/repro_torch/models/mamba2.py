@@ -4,15 +4,21 @@ State-space duality form: per head with state size n,
     h_t = exp(A·dt_t) · h_{t-1} + dt_t · B_t x_tᵀ        (n × p state)
     y_t = C_tᵀ h_t + D · x_t
 with scalar A < 0 per head, data-dependent dt, and one B and C shared by
-every head (n_groups = 1, as in zamba2-1.2b). Op for op the reference's.
+every head (n_groups = 1, as in zamba2-1.2b). The projections, the conv,
+prefill and decode are op for op the reference's; the training scan is
+not (below).
 
 The scan takes one of two routes, as attention does (``attention.py``):
 prefill (``want_cache``, no gradient) runs it in the ``ssd_scan`` kernel's
 model-layout entry, which reads x, B and C in place in the conv output and
-returns the final state; training keeps the plain chunked scan
-:func:`_ssd_chunked`, which autograd differentiates. Decode is the O(1)
-recurrence in plain PyTorch (the reference has no kernel for it), and
-updates the SSM and conv states in place.
+returns the final state; training runs :func:`_ssd_chunked`, which autograd
+differentiates. Where the reference scans chunk by chunk and contracts
+(q, k, h, p) in one einsum, which torch evaluates through a (b, q, h, p, k)
+product, :func:`_ssd_chunked` takes every chunk at once as batched f32
+GEMMs and holds no tensor with both p and a second sequence axis; the
+tests hold it to the reference's outputs, final state and gradients.
+Decode is the O(1) recurrence in plain PyTorch (the reference has no
+kernel for it), and updates the SSM and conv states in place.
 """
 
 from __future__ import annotations
@@ -83,54 +89,76 @@ def _causal_conv(xbc, w, b, init_state=None):
 
 
 def _ssd_chunked(xh, dt, A, B, C, chunk, ssm_init=None):
-    """Chunked SSD scan, the plain (training) route.
+    """Chunked SSD scan, the training route: batched GEMMs over every chunk.
 
     xh: (b, s, h, p) head inputs; dt: (b, s, h) positive step sizes;
     A: (h,) negative decay rates; B, C: (b, s, n).
-    Returns (y (b,s,h,p), final_state (b,h,p,n)).
+    Returns (y (b,s,h,p), final_state (b,h,p,n)), all f32.
+
+    With l = chunk and c = s // l chunks, cum the inclusive log-decay within
+    each chunk and x' = dt ∘ x:
+
+    * intra-chunk: y = (L ∘ C Bᵀ) @ x' over (b, c, h), with
+      L[q, k] = exp(cum_q - cum_k) for q >= k, masked before the exp;
+    * chunk states: (x' ∘ exp(cum_end - cum))ᵀ @ B, (b, c, h, p, n);
+    * across chunks: the (c+1)² matrix of chunk-total decays carries
+      ``ssm_init`` and the chunk states into the state entering each chunk,
+      the last row being the final state;
+    * inter-chunk: y += (C @ enteringᵀ) ∘ exp(cum).
+
+    The largest tensor is (b, c, h, l, l), b·s·h·l elements: none holds both
+    p and a second sequence axis, where a contraction over (q, k, h, p)
+    would form a (b, q, h, p, k) product. Shapes depend only on
+    (b, s, h, p, n, chunk) and nothing is read on the host, so the route
+    captures in a CUDA graph.
     """
     b, s, h, p = xh.shape
     n = B.shape[-1]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the SSD chunk {chunk}")
     nc = s // chunk
-    la = dt * A[None, None, :]  # log decay per step (b, s, h) (negative)
+    dtc = dt.reshape(b, nc, chunk, h)
+    xdt = xh.reshape(b, nc, chunk, h, p) * dtc[..., None]      # (b, c, l, h, p)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtc * A, dim=2)  # (b, c, l, h) inclusive log-decay (negative)
 
-    xc = xh.reshape(b, nc, chunk, h, p).transpose(0, 1)
-    dtc = dt.reshape(b, nc, chunk, h).transpose(0, 1)
-    lac = la.reshape(b, nc, chunk, h).transpose(0, 1)
-    Bc = B.reshape(b, nc, chunk, n).transpose(0, 1)
-    Cc = C.reshape(b, nc, chunk, n).transpose(0, 1)
+    # intra: L[q,k] = exp(cum_q - cum_k), q >= k (decay over k+1..q)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
+    ch = cum.transpose(2, 3).contiguous()[..., None]           # (b, c, h, l, 1)
+    # (-ch) on the small operand: the backward then negates no (q, k) tensor
+    decay = torch.exp(torch.where(mask, ch + (-ch).transpose(3, 4), -torch.inf))
+    cb = Cc @ Bc.transpose(2, 3)                               # (b, c, q, k), shared by heads
+    y = (decay * cb[:, :, None]) @ xdt.transpose(2, 3)         # (b, c, h, q, p)
 
-    carry = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xh.device)
-             if ssm_init is None else ssm_init.float())
-    ys = []
-    for xcc, dcc, lcc, Bcc, Ccc in zip(xc, dtc, lac, Bc, Cc):
-        seg = torch.cumsum(lcc, dim=1)      # (b, chunk, h) inclusive log-decay
-        total = seg[:, -1]                  # (b, h)
-        # intra: L[i,j] = exp(seg_i - seg_j), i >= j (decay over j+1..i)
-        li = seg[:, :, None, :]
-        lj = seg[:, None, :, :]
-        decay = torch.exp(torch.where(mask[None, :, :, None], li - lj, -torch.inf))
-        cb = torch.einsum("bqn,bkn->bqk", Ccc, Bcc)
-        y = torch.einsum("bqk,bqkh,bkh,bkhp->bqhp", cb, decay, dcc, xcc)
-        # inter: contribution of the state entering this chunk
-        y = y + torch.einsum("bqn,bqh,bhpn->bqhp", Ccc, torch.exp(seg), carry)
-        # state update: S = S*exp(total) + sum_j exp(total - seg_j) dt_j B_j x_j^T
-        wdec = torch.exp(total[:, None, :] - seg) * dcc   # (b, k, h)
-        st = torch.einsum("bkh,bkn,bkhp->bhpn", wdec, Bcc, xcc)
-        carry = carry * torch.exp(total)[:, :, None, None] + st
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, h, p)
-    return y, carry
+    # chunk states: sum_k exp(cum_end - cum_k) dt_k x_k B_kᵀ
+    to_end = torch.exp(cum[:, :, -1:] - cum)                   # (b, c, l, h)
+    st = (xdt * to_end[..., None]).reshape(b, nc, chunk, h * p).transpose(2, 3) @ Bc
+
+    # across: entering[z] = sum_{j<=z} exp(total_j + ... + total_{z-1}) S_j,
+    # S_0 the initial state, S_{j+1} chunk j's state
+    init = (xh.new_zeros((b, 1, h * p, n)) if ssm_init is None
+            else ssm_init.float().reshape(b, 1, h * p, n))
+    states = torch.cat([init, st], dim=1).reshape(b, nc + 1, h, p * n).transpose(1, 2)
+    tot = F.pad(cum[:, :, -1].transpose(1, 2), (1, 0))         # (b, h, c+1), tot[0] = 0
+    ones = torch.ones((nc + 1, nc + 1), dtype=torch.bool, device=xh.device)
+    # seg[z, j] = tot[j+1] + ... + tot[z], summed in order (no cumsum differences)
+    seg = torch.cumsum(torch.where(torch.tril(ones, -1), tot[..., None], 0.0), dim=2)
+    across = torch.exp(torch.where(torch.tril(ones), seg, -torch.inf))  # (b, h, z, j)
+    entering = (across @ states).reshape(b, h, nc + 1, p, n)
+
+    # inter: the state entering each chunk, decayed to each position
+    ent = entering[:, :, :nc].transpose(1, 2).reshape(b, nc, h * p, n)
+    y = (Cc @ ent.transpose(2, 3)).reshape(b, nc, chunk, h, p) * torch.exp(cum)[..., None] \
+        + y.transpose(2, 3)
+    return y.reshape(b, s, h, p), entering[:, :, nc]
 
 
 def mamba2_block(p_, x, cfg, *, init_state=None, chunk=None, want_cache=False):
     """x: (B,S,d) -> (y, {"ssm","conv"} final state).
 
     ``want_cache`` (prefill: no gradient) runs the scan in the ``ssd_scan``
-    kernel; otherwise the plain chunked scan runs. Either way S must be at
+    kernel; otherwise :func:`_ssd_chunked` runs. Either way S must be at
     most the chunk or a multiple of it, the reference's rule.
     """
     chunk = chunk or cfg.ssm_chunk

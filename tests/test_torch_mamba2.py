@@ -6,14 +6,19 @@ weights and inputs. Tolerance: scale-normalised max error (max |port -
 jax| / max |jax|) <= 1e-5, which f32 reassociation stays far below at
 these widths. The prefill route scans in the ssd_scan kernel's
 model-layout entry (its plain sequential version on the CPU), the training
-route in the plain chunked scan; both are held to the reference's chunked
-``_ssd_chunked`` route.
+route in the port's batched chunked scan; both are held to the reference's
+chunked ``_ssd_chunked`` route, the training scan's gradients too (against
+``jax.grad``), and a dispatch mode bounds the largest tensor the training
+scan allocates.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro.configs import get_config, reduced
 from repro.models import mamba2 as jmamba2
@@ -87,20 +92,81 @@ def test_causal_conv(cfg, with_init):
     np.testing.assert_array_equal(st.numpy(), np.asarray(jst))
 
 
-@pytest.mark.parametrize("s,chunk", [(32, 8), (20, None)])
-def test_ssd_chunked(cfg, s, chunk):
-    rng = np.random.default_rng(2)
+def _scan_inputs(b, s, h, p, n, seed=2):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, s, h, p)).astype(np.float32),            # xh
+            (rng.random((b, s, h)) * 0.5 + 0.01).astype(np.float32),    # dt
+            (-rng.random((h,)) * 2 - 0.1).astype(np.float32),           # A
+            rng.normal(size=(b, s, n)).astype(np.float32),              # B
+            rng.normal(size=(b, s, n)).astype(np.float32),              # C
+            rng.normal(size=(b, h, p, n)).astype(np.float32) * 0.5]     # ssm_init
+
+
+@pytest.mark.parametrize("s,chunk,with_init", [
+    pytest.param(32, 8, True, id="32-8"),
+    pytest.param(20, None, False, id="20-None"),
+    pytest.param(32, 8, False, id="32-8-no_init"),
+    pytest.param(16, 16, True, id="one_chunk"),
+    pytest.param(12, 32, True, id="s_below_chunk"),
+])
+def test_ssd_chunked(s, chunk, with_init):
+    """Outputs, final state and the gradients of every input against
+    ``jax.grad`` of the reference's scan, through random cotangents. A
+    sequence shorter than the chunk runs as ``mamba2_block`` runs it, with
+    the chunk clipped to the sequence."""
     b, h, p, n = 2, 4, 8, 16
-    chunk = chunk or s
-    xh = rng.normal(size=(b, s, h, p)).astype(np.float32)
-    dt = (rng.random((b, s, h)) * 0.5 + 0.01).astype(np.float32)
-    a = (-rng.random((h,)) * 2 - 0.1).astype(np.float32)
-    bm, cm = (rng.normal(size=(b, s, n)).astype(np.float32) for _ in range(2))
-    jy, jf = jmamba2._ssd_chunked(*(jnp.asarray(t) for t in (xh, dt, a, bm, cm)), chunk)
-    y, f = mamba2._ssd_chunked(*(torch.from_numpy(t) for t in (xh, dt, a, bm, cm)), chunk)
+    chunk = min(chunk or s, s)
+    arrs = _scan_inputs(b, s, h, p, n)[:6 if with_init else 5]
+    rng = np.random.default_rng(3)
+    gy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    gf = rng.normal(size=(b, h, p, n)).astype(np.float32)
+
+    def jloss(*t):
+        y, f = jmamba2._ssd_chunked(*t[:5], chunk, t[5] if with_init else None)
+        return jnp.sum(y * gy) + jnp.sum(f * gf), (y, f)
+
+    (_, (jy, jf)), jgrads = jax.value_and_grad(jloss, argnums=tuple(range(len(arrs))),
+                                               has_aux=True)(*map(jnp.asarray, arrs))
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, f = mamba2._ssd_chunked(*ts[:5], chunk, ts[5] if with_init else None)
+    assert y.dtype == f.dtype == torch.float32
     assert err(y, jy) <= TOL and err(f, jf) <= TOL
+    ((y * torch.from_numpy(gy)).sum() + (f * torch.from_numpy(gf)).sum()).backward()
+    for name, t, jg in zip(("xh", "dt", "A", "B", "C", "ssm_init"), ts, jgrads):
+        assert err(t.grad, jg) <= TOL, name
     with pytest.raises(ValueError, match="multiple"):
-        mamba2._ssd_chunked(*(torch.from_numpy(t) for t in (xh, dt, a, bm, cm)), 7)
+        mamba2._ssd_chunked(*(torch.from_numpy(a) for a in arrs[:5]), 7)
+
+
+class _Allocations(TorchDispatchMode):
+    """Records the storage size, in elements, of every tensor an op returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.sizes += [(t.untyped_storage().nbytes() // t.element_size(), str(func))
+                       for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        return out
+
+
+def test_ssd_chunked_forms_no_p_by_chunk_product():
+    """Forward and backward of the training scan allocate no tensor larger
+    than b·s·h·max(chunk, p, n) elements: 16,384 at b 2, s 64, h 4, p 16,
+    n 8, chunk 32. A scan that contracts (q, k, h, p) at once forms the
+    (b, q, h, p, k) product, 131,072 elements a chunk here, and fails."""
+    b, s, h, p, n, chunk = 2, 64, 4, 16, 8, 32
+    ts = [torch.from_numpy(a).requires_grad_() for a in _scan_inputs(b, s, h, p, n)]
+    mode = _Allocations()
+    with mode:
+        y, f = mamba2._ssd_chunked(*ts[:5], chunk, ts[5])
+        (y.sum() + f.square().sum()).backward()
+    assert all(t.grad is not None for t in ts)
+    bound = b * s * h * max(chunk, p, n)
+    biggest = max(mode.sizes)
+    assert biggest[0] <= bound, biggest
 
 
 @pytest.mark.parametrize("with_init", [False, True])
