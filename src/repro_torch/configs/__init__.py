@@ -13,6 +13,7 @@ from . import (  # noqa: E402
     hubert_xlarge,
     kimi_k2_1t_a32b,
     llava_next_34b,
+    nemotron_3_nano_30b_a3b,
     phi3_medium_14b,
     starcoder2_15b,
     tinyllama_1_1b,
@@ -33,6 +34,7 @@ ARCHS: dict[str, ModelConfig] = {
         llava_next_34b,
         hubert_xlarge,
         xlstm_350m,
+        nemotron_3_nano_30b_a3b,
     )
 }
 
@@ -76,6 +78,11 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(ssm_state=16, ssm_head_dim=32, attn_every=2)
     if cfg.family == "ssm":
         kw.update(slstm_every=2)
+    if cfg.family == "nemotron_h":
+        # the pattern's opening "MEMEM*": every kind; experts a quarter held
+        kw.update(num_layers=6, num_kv_heads=2, d_ff=96, moe_num_experts=4,
+                  moe_router_experts=16, moe_top_k=4, moe_shared_ff=192, ssm_state=16,
+                  ssm_heads=8, ssm_head_dim=16, ssm_groups=2, ssm_chunk=16)
     if cfg.window:
         kw["window"] = 64
     if cfg.frontend != "none":

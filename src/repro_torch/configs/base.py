@@ -16,7 +16,7 @@ __all__ = ["ModelConfig", "ShapeConfig", "RunConfig"]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | hybrid | ssm | encoder | vlm
+    family: str                  # dense | moe | hybrid | ssm | encoder | vlm | nemotron_h
     num_layers: int
     d_model: int
     num_heads: int
@@ -35,6 +35,13 @@ class ModelConfig:
     router_aux_weight: float = 0.01
     moe_impl: str = "gspmd"      # "gspmd" (pjit dispatch) | "a2a" (shard_map
                                  # all-to-all; needs a mesh with a model axis)
+    # The single-mixer ``moe`` layers (``layer_pattern``'s E), sigmoid-routed
+    # relu² experts (``models/moe.py`` ``moe_share_block``): the router
+    # scores ``moe_router_experts`` experts (0 -> moe_num_experts), of which
+    # the layer holds the first ``moe_num_experts`` (a chip's expert share).
+    moe_router_experts: int = 0
+    moe_routed_scale: float = 1.0  # routed experts' weights multiplied by it
+    moe_shared_ff: int = 0       # shared experts' width (0 -> d_ff * moe_num_shared)
 
     # --- SSM / hybrid ---
     ssm_state: int = 0
@@ -43,6 +50,14 @@ class ModelConfig:
     ssm_head_dim: int = 64
     ssm_chunk: int = 256         # SSD chunk length (perf knob, §Perf)
     attn_every: int = 0          # hybrid: shared attn block after every k blocks
+    ssm_groups: int = 1          # groups of B and C, the heads split evenly over them
+    ssm_heads: int = 0           # Mamba-2 heads (0 -> d_inner = ssm_expand * d_model)
+    ssm_gated_norm: bool = False  # RMSNorm of y * silu(z) over each group's channels
+
+    # --- a layout read from a pattern (nemotron_h): one letter a layer,
+    # M a Mamba-2 layer, E a MoE layer, * an attention layer; the model is
+    # its first ``num_layers`` letters (a pipeline stage 0 when fewer) ---
+    layer_pattern: str = ""
 
     # --- xLSTM ---
     slstm_every: int = 0         # every k-th block is sLSTM (rest mLSTM)
@@ -50,6 +65,7 @@ class ModelConfig:
 
     # --- attention details ---
     causal: bool = True
+    rope: bool = True            # False: no rotary positions (nemotron_h's attention)
     rope_theta: float = 10_000.0
     window: int = 0              # sliding-window size (0 = full attention)
     attn_shard: str = "heads"    # "heads" | "seq" (fallback when heads % tp != 0)
@@ -79,11 +95,26 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:  # mamba2 inner width
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
+
+    @property
+    def moe_routed(self) -> int:
+        """Experts the router scores (a layer holds ``moe_num_experts`` of them)."""
+        return self.moe_router_experts or self.moe_num_experts
+
+    @property
+    def moe_shared_width(self) -> int:
+        return self.moe_shared_ff or self.d_ff * self.moe_num_shared
 
     # ------------------------------------------------------------- counting
     def param_count(self) -> int:
-        """Exact parameter count of the built model (validated by tests)."""
+        """Parameter count of the built model, exact for the attention
+        kinds and for a ``layer_pattern`` layout (validated by tests). The
+        ``attn_every`` hybrid's and xLSTM's are the reference's formulas,
+        which leave out some per-channel leaves and count zamba2's shared
+        block at every site."""
         d, v = self.d_model, self.vocab_size
         hd = self.head_dim_
         total = v * d  # embedding
@@ -111,6 +142,17 @@ class ModelConfig:
             shared = self.moe_num_shared * 3 * d * self.d_ff
             router = d * self.moe_num_experts
             return self._attn_params(d, hd) + experts + shared + router + 2 * d
+        if kind == "moe":  # relu² experts: up and down
+            shared = 2 * d * self.moe_shared_width if self.moe_num_shared else 0
+            return d * self.moe_routed + self.moe_num_experts * 2 * d * self.d_ff + shared + d
+        if kind == "attn":
+            return self._attn_params(d, hd) + d
+        if kind == "mamba2" and self.layer_pattern:
+            di, n, g = self.d_inner, self.ssm_state, self.ssm_groups
+            heads, conv_dim = di // self.ssm_head_dim, di + 2 * g * n
+            norm = di if self.ssm_gated_norm else 0
+            return (d * (2 * di + 2 * g * n + heads) + (self.ssm_conv + 1) * conv_dim
+                    + 3 * heads + norm + di * d + d)
         if kind == "mamba2":
             di, n = self.d_inner, self.ssm_state
             heads = di // self.ssm_head_dim
@@ -133,11 +175,20 @@ class ModelConfig:
         raise ValueError(kind)
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: shared + top-k of routed)."""
+        """Params touched per token (MoE: shared + top-k of routed). For
+        ``moe`` layers that hold a share of the router's experts, the
+        expected number of held experts a token reaches,
+        ``top_k * held / routed``."""
         if not self.moe_num_experts:
             return self.param_count()
         total = self.param_count()
         d = self.d_model
+        if self.layer_pattern:
+            expert = 2 * d * self.d_ff
+            layers = self.block_layout().count("moe")
+            held = self.moe_num_experts
+            active = expert * self.moe_top_k * held / self.moe_routed
+            return int(total - layers * (held * expert - active))
         routed = (self.num_layers - self.moe_first_dense) * (
             self.moe_num_experts * 3 * d * self.d_ff
         )
@@ -149,6 +200,12 @@ class ModelConfig:
         """Per-layer block kinds, in order. 'shared_attn' appears at each
         application site but its params are shared (counted once)."""
         L = self.num_layers
+        if self.layer_pattern:
+            kinds = {"M": "mamba2", "E": "moe", "*": "attn"}
+            if len(self.layer_pattern) < L or set(self.layer_pattern) - set(kinds):
+                raise ValueError(f"layer_pattern {self.layer_pattern!r} must have at least {L} "
+                                 f"letters of {sorted(kinds)}")
+            return [kinds[c] for c in self.layer_pattern[:L]]
         if self.family in ("dense", "encoder", "vlm"):
             return ["attn_mlp"] * L
         if self.family == "moe":

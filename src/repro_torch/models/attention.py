@@ -18,7 +18,8 @@ it (``train/train_step.py``). Training keeps the plain
 paths: the flash kernel has no backward and refuses inputs that require
 grad. Above ``attn_dense_threshold`` a config with ``attn_shard="seq"``
 (phi3, llava) trains through ``_chunked_attention_vecq``, the others
-through ``_chunked_attention``.
+through ``_chunked_attention``. A config with ``rope=False`` (nemotron-h,
+whose Mamba-2 layers carry position) rotates neither q nor k.
 """
 
 from __future__ import annotations
@@ -61,6 +62,16 @@ def _project_qkv(p, x, cfg):
     k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
     v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     return q, k, v
+
+
+def _rotate(q, k, positions, cfg):
+    """q and k with rotary positions, or as they are without them (the JAX
+    package's configurations, which the tests pass here too, always have
+    them and no ``rope`` field)."""
+    if not getattr(cfg, "rope", True):
+        return q, k
+    sin, cos = make_rope(positions, cfg.head_dim_, cfg.rope_theta)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos)
 
 
 def _expand_kv(k, cfg):
@@ -213,9 +224,7 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     q, k, v = _project_qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    sin, cos = make_rope(positions, cfg.head_dim_, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    q, k = _rotate(q, k, positions, cfg)
     kv = (k, v)
     if want_cache:
         out = flash_attention_gqa(q, k, v, causal=cfg.causal, window=cfg.window,
@@ -290,7 +299,7 @@ def decode_attention_block(p, x, cache_k, cache_v, cache_pos, cfg,
     ``cache_pos mod S_c`` of the cache **in place**, an indexed write on
     the device as the reference's ``dynamic_update_slice_in_dim``, and
     returns the block output (B, 1, d). Nothing is read back to the host.
-    Keys are stored RoPE'd at absolute positions, so a rotating buffer
+    Keys are stored RoPE'd (where the config rotates) at absolute positions, so a rotating buffer
     (``S_c == window``) needs no re-rotation.
 
     With ``cfg.kv_cache_dtype == "int8"`` the cache is int8 with bf16
@@ -303,9 +312,7 @@ def decode_attention_block(p, x, cache_k, cache_v, cache_pos, cfg,
     s_c = cache_k.shape[1]
     cache_pos = position(cache_pos, x.device)
     q, k, v = _project_qkv(p, x, cfg)
-    sin, cos = make_rope(cache_pos.expand(b, 1), hd, cfg.rope_theta)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    q, k = _rotate(q, k, cache_pos.expand(b, 1), cfg)
     slot = torch.remainder(cache_pos, s_c).long().view(1)
     if cfg.kv_cache_dtype == "int8":
         kq, ks = quantize_kv(k)

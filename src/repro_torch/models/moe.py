@@ -17,11 +17,27 @@ weights, as in the reference.
 parallelism over a mesh's "model" axis (``cfg.moe_impl == "a2a"``).
 
 A Switch-style auxiliary load-balance loss is returned for training.
+
+``moe_share_block`` is the single-mixer MoE layer of a ``layer_pattern``
+model (nemotron-h), which holds a share of the router's experts: the
+router scores all ``cfg.moe_routed`` experts, the layer computes its own
+``cfg.moe_num_experts`` and adds only their part of the result (plus the
+shared expert), as one rank of an expert-parallel deployment does without
+the exchange. Its dispatch drops nothing and keeps static shapes: the
+assignments that land on held experts are sorted by expert into a buffer
+of ``T * min(top_k, held)`` rows, the bound a token's held assignments
+keep to, and the experts run as two grouped products
+(``torch._grouped_mm``) whose offsets stay on the device. The products
+leave rows past the last offset undefined: the combine never reads them,
+and their gradient is zeroed before it reaches the tokens. Nothing is
+read on the host, so the layer captures in a CUDA graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +45,9 @@ import torch.nn.functional as F
 from ..parallel.axes import current_ctx, shard
 from .common import scaled_init
 
-__all__ = ["a2a_capacities", "init_moe", "moe_block", "moe_block_a2a", "route", "slot_maps"]
+__all__ = ["a2a_capacities", "init_moe", "init_moe_share", "moe_block", "moe_block_a2a",
+           "moe_share_block", "moe_share_shapes", "recomputing", "route", "route_share",
+           "slot_maps"]
 
 
 def init_moe(gen, cfg, dtype) -> dict:
@@ -329,3 +347,132 @@ def moe_block_a2a(p, x, cfg, *, drops: dict | None = None):
         hs = F.silu(x @ sp["wi_gate"]) * (x @ sp["wi_up"])
         out = out + hs @ sp["wo"]
     return out, aux.float()
+
+
+# ------------------------------------------------------- the expert share
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The span of an activation checkpoint's recompute (its ``context_fn``):
+    a layer's rows counter does not count the layer twice in a step."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def moe_share_shapes(cfg) -> dict:
+    """One ``moe`` layer's parameter shapes: the router over every routed
+    expert, the held experts and the shared expert. The layer is
+    nemotron-h's by definition: a sigmoid router, non-gated relu² experts."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_num_experts
+    out = {"router": (d, cfg.moe_routed), "wi_up": (e, d, f), "wo": (e, f, d)}
+    if cfg.moe_num_shared:
+        sf = cfg.moe_shared_width
+        out["shared"] = {"wi_up": (d, sf), "wo": (sf, d)}
+    return out
+
+
+def init_moe_share(gen, cfg, dtype) -> dict:
+    """Draws in the order router, wi_up, wo, then the shared expert's
+    (``moe_share_shapes``)."""
+
+    def draw(tree):
+        return {name: draw(shape) if isinstance(shape, dict) else
+                scaled_init(gen, shape, dtype, fan_in=shape[-2])
+                for name, shape in tree.items()}
+
+    return draw(moe_share_shapes(cfg))
+
+
+def route_share(p, x, bias, cfg):
+    """x (T, d). The router in f32 over every routed expert: sigmoid
+    scores, top-k of score + ``bias`` (the correction bias, which picks the
+    experts but weighs nothing), weighted by the chosen scores over ``sum +
+    1e-20`` and scaled by ``moe_routed_scale``. Returns ``(top_w (T, k)
+    f32, top_e (T, k))``."""
+    scores = torch.sigmoid(x.float() @ p["router"].float())
+    top_e = torch.topk(scores + bias, cfg.moe_top_k, dim=-1, sorted=True).indices
+    top_w = torch.gather(scores, -1, top_e)
+    return top_w / (top_w.sum(-1, keepdim=True) + 1e-20) * cfg.moe_routed_scale, top_e
+
+
+def _relu2(x, up, down, offs=None):
+    """``down(relu(up x)^2)``; with ``offs`` (cumulative row ends) the held
+    experts' grouped products on their sorted rows."""
+    if offs is None:
+        return torch.relu(x @ up).square() @ down
+    h = torch.relu(torch._grouped_mm(x, up, offs=offs)).square()
+    return torch._grouped_mm(h, down, offs=offs)
+
+
+class _TokenRows(torch.autograd.Function):
+    """``x[order // k]``: the rows of an assignment buffer. The backward
+    puts each row's gradient at its assignment (at most once each) and sums
+    a token's ``k`` assignments, so that it adds in a fixed order where a
+    scatter-add over tokens would race."""
+
+    @staticmethod
+    def forward(ctx, x, order, k):
+        ctx.save_for_backward(order)
+        ctx.k, ctx.tokens = k, x.shape[0]
+        return x.index_select(0, order // k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (order,) = ctx.saved_tensors
+        per = grad.new_zeros((ctx.tokens * ctx.k, grad.shape[-1]))
+        per.index_copy_(0, order, grad)
+        return per.view(ctx.tokens, ctx.k, -1).sum(1), None, None
+
+
+def moe_share_block(p, x, cfg, *, first: int = 0):
+    """x: (B, S, d) -> (out, None): the held experts' part of the routed
+    result plus the shared expert (the layer of ``moe_share_shapes``). The
+    layer holds experts ``first`` to ``first + moe_num_experts - 1`` of the
+    router's (``first`` is 0 on the model's path; the tests hold other
+    shares). ``p`` holds the parameters
+    of ``moe_share_shapes``, the correction bias ``p["bias"]`` (routed,)
+    f32 and, on the model's path, ``p["rows"]`` (held,) int64, the rows
+    counter, to which a training forward adds each held expert's rows
+    (not a checkpoint's recompute, so once a step)."""
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.moe_top_k, cfg.moe_num_experts
+    xt = x.reshape(t, d)
+    top_w, top_e = route_share(p, xt, p["bias"], cfg)
+    local = top_e - first
+    held = (local >= 0) & (local < e)
+    key = torch.where(held, local, e).reshape(-1)
+    key_s, order = torch.sort(key, stable=True)
+    # a token has at most min(k, e) held assignments, all sorted first
+    m = t * min(k, e)
+    key_s, rows_at = key_s[:m], order[:m]
+    valid = (key_s < e)[:, None]
+    offs = torch.searchsorted(key_s, torch.arange(1, e + 1, device=x.device), out_int32=True)
+    rows = p.get("rows")
+    if rows is not None and torch.is_grad_enabled() and not getattr(_RECOMPUTE, "on", False):
+        rows.add_(torch.diff(offs, prepend=offs.new_zeros(1)))
+
+    # the mask passes no gradient of the rows past the last offset to x
+    buf = torch.where(valid, _TokenRows.apply(xt, rows_at, k), 0)
+    y = _relu2(buf, p["wi_up"], p["wo"], offs)
+
+    # combine: each assignment's row (held rows lie before the last offset;
+    # a zero row m where it is not held), k gathers in token order, weighted
+    # and summed in f32
+    pos = torch.empty_like(order).scatter_(0, order, torch.arange(t * k, device=x.device))
+    idx = torch.where(held.reshape(-1), pos, m).reshape(t, k)
+    y = torch.cat([y, y.new_zeros((1, d))])
+    w = torch.where(held, top_w, 0.0)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + y.index_select(0, idx[:, j]).float() * w[:, j, None]
+    out = out.to(x.dtype)
+
+    if cfg.moe_num_shared:
+        out = out + _relu2(xt, p["shared"]["wi_up"], p["shared"]["wo"])
+    return out.reshape(b, s, d), None

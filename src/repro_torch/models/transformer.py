@@ -15,7 +15,15 @@ The block kinds, each a pre-norm residual block:
   dense layers of a MoE stack;
 - ``attn_moe``: attention + the routed/shared experts of ``moe.py``, whose
   load-balance loss ``forward`` sums into the ``aux`` it returns;
-- ``mamba2``: the Mamba-2 mixer (zamba2);
+- ``mamba2``: the Mamba-2 mixer (zamba2, nemotron-h);
+- ``moe`` and ``attn``: the single-mixer layers of a ``layer_pattern``
+  layout (nemotron-h), a norm then the experts of ``moe_share_block`` (a
+  share of the router's experts, dropless) or GQA attention. The model
+  holds each ``moe`` layer's correction bias (``router_bias``, f32, zero;
+  it picks experts and weighs nothing) and its rows counter
+  (``expert_rows``, the rows a training step routed to each held expert,
+  accumulated on the card: ``device_counters``) as buffers, outside the
+  parameter tree;
 - ``shared_attn``: zamba2's *shared* attention+MLP block, one unstacked
   parameter set under ``shared_attn`` applied at every site, whose
   ``segments`` entry is an empty placeholder, the reference's tree;
@@ -63,6 +71,8 @@ which needs a context whose mesh has a "model" axis.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -73,9 +83,17 @@ from ..kernels.common import resolve_device
 from ..parallel.axes import shard
 from .attention import attention_block, decode_attention_block, init_attention, position
 from .common import flatten_tree, normal_init, rms_norm
-from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_state_shape
+from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_shapes, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
-from .moe import init_moe, moe_block, moe_block_a2a
+from .moe import (
+    init_moe,
+    init_moe_share,
+    moe_block,
+    moe_block_a2a,
+    moe_share_block,
+    moe_share_shapes,
+    recomputing,
+)
 from .xlstm import (
     _mlstm_dims,
     _slstm_dims,
@@ -91,7 +109,7 @@ from .xlstm import (
 
 __all__ = ["ATTN_KINDS", "Model", "build_model"]
 
-ATTN_KINDS = ("attn_mlp", "attn_dense_moe", "attn_moe", "shared_attn")
+ATTN_KINDS = ("attn_mlp", "attn_dense_moe", "attn_moe", "shared_attn", "attn")
 REMAT_MODES = ("none", "dots", "full")
 #: The recurrent kinds: (full-sequence block, one-token decode, parameter key).
 _RECURRENT = {
@@ -113,11 +131,14 @@ def _ffn_width(kind, cfg) -> int:
 def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
     """One layer's parameter tree as shapes (the reference's ``_init_block``)."""
     d, hd = cfg.d_model, cfg.head_dim_
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    attn = {"wq": (d, h * hd), "wk": (d, kvh * hd), "wv": (d, kvh * hd), "wo": (h * hd, d)}
+    if kind == "moe":
+        return {"ln": (d,), "moe": moe_share_shapes(cfg)}
+    if kind == "attn":
+        return {"ln": (d,), "attn": attn}
     if kind in ATTN_KINDS:
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
-        tree = {"ln1": (d,), "ln2": (d,),
-                "attn": {"wq": (d, h * hd), "wk": (d, kvh * hd), "wv": (d, kvh * hd),
-                         "wo": (h * hd, d)}}
+        tree = {"ln1": (d,), "ln2": (d,), "attn": attn}
         if kind == "attn_moe":
             e, f = cfg.moe_num_experts, cfg.d_ff
             tree["moe"] = {"router": (d, e), "wi_gate": (e, d, f), "wi_up": (e, d, f),
@@ -130,12 +151,7 @@ def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
             tree["mlp"] = {"wi_gate": (d, f), "wi_up": (d, f), "wo": (f, d)}
         return tree
     if kind == "mamba2":
-        di, n = cfg.d_inner, cfg.ssm_state
-        heads, conv_dim = di // cfg.ssm_head_dim, di + 2 * n
-        return {"ln": (d,), "mixer": {
-            "in_proj": (d, 2 * di + 2 * n + heads), "conv_w": (cfg.ssm_conv, conv_dim),
-            "conv_b": (conv_dim,), "A_log": (heads,), "dt_bias": (heads,), "D": (heads,),
-            "out_proj": (di, d)}}
+        return {"ln": (d,), "mixer": mamba2_shapes(cfg)}
     if kind == "mlstm":
         di, heads, _ = _mlstm_dims(cfg)
         return {"ln": (d,), "cell": {
@@ -154,10 +170,18 @@ def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
 def _block_axes(kind: str, cfg: ModelConfig) -> dict:
     """One layer's logical axes, the tree of :func:`_block_shapes` (the
     reference's ``Param`` axes)."""
+    attn = {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+            "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}
+    if kind == "attn":
+        return {"ln": ("embed",), "attn": attn}
+    if kind == "moe":
+        experts = {"router": ("embed", None), "wi_up": ("experts", "embed", None),
+                   "wo": ("experts", None, "embed")}
+        if cfg.moe_num_shared:
+            experts["shared"] = {"wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+        return {"ln": ("embed",), "moe": experts}
     if kind in ATTN_KINDS:
-        tree = {"ln1": ("embed",), "ln2": ("embed",),
-                "attn": {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
-                         "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}}
+        tree = {"ln1": ("embed",), "ln2": ("embed",), "attn": attn}
         mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
         if kind == "attn_moe":
             tree["moe"] = {"router": ("embed", None), "wi_gate": ("experts", "embed", None),
@@ -169,10 +193,12 @@ def _block_axes(kind: str, cfg: ModelConfig) -> dict:
             tree["mlp"] = mlp
         return tree
     if kind == "mamba2":
-        return {"ln": ("embed",), "mixer": {
-            "in_proj": ("embed", "inner_flat"), "conv_w": (None, "inner_flat"),
-            "conv_b": ("inner_flat",), "A_log": ("heads",), "dt_bias": ("heads",),
-            "D": ("heads",), "out_proj": ("inner_flat", "embed")}}
+        mixer = {"in_proj": ("embed", "inner_flat"), "conv_w": (None, "inner_flat"),
+                 "conv_b": ("inner_flat",), "A_log": ("heads",), "dt_bias": ("heads",),
+                 "D": ("heads",), "out_proj": ("inner_flat", "embed")}
+        if "norm" in mamba2_shapes(cfg):
+            mixer["norm"] = ("inner_flat",)
+        return {"ln": ("embed",), "mixer": mixer}
     if kind == "mlstm":
         flat = ("inner_flat", "inner_flat")
         return {"ln": ("embed",), "cell": {
@@ -191,6 +217,10 @@ def _block_axes(kind: str, cfg: ModelConfig) -> dict:
 def _init_block(kind: str, gen, cfg: ModelConfig, dtype) -> dict:
     """One layer's parameters, drawn in the reference's order."""
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)  # noqa: E731
+    if kind == "moe":
+        return {"ln": zeros(), "moe": init_moe_share(gen, cfg, dtype)}
+    if kind == "attn":
+        return {"ln": zeros(), "attn": init_attention(gen, cfg, dtype)}
     if kind == "attn_moe":
         return {"ln1": zeros(), "attn": init_attention(gen, cfg, dtype), "ln2": zeros(),
                 "moe": init_moe(gen, cfg, dtype)}
@@ -208,6 +238,13 @@ def _block(kind, p, x, cfg, want_cache=False):
     ``want_cache`` (prefill, no gradient) routes attention through the
     flash kernel and the Mamba-2 scan through ssd_scan."""
     eps = cfg.norm_eps
+    if kind == "moe":
+        h, _ = moe_share_block(p["moe"], rms_norm(x, p["ln"], eps), cfg)
+        return x + _residual(h), {}, None
+    if kind == "attn":
+        h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln"], eps), cfg,
+                                    want_cache=want_cache)
+        return x + _residual(h), {"k": k, "v": v}, None
     if kind in ATTN_KINDS:
         h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
                                     want_cache=want_cache)
@@ -234,6 +271,12 @@ def _residual(h):
     return shard(h, "batch", "seq_act", "embed_act")
 
 
+def _recompute_context():
+    """A checkpoint's contexts: none for the forward, and for the recompute
+    the span that the moe layers' rows counters do not count."""
+    return contextlib.nullcontext(), recomputing()
+
+
 def _train_block(kind, p, x, cfg):
     x, _, aux = _block(kind, p, x, cfg)
     return x, aux
@@ -243,8 +286,14 @@ def _decode_block(kind, p, x, cache, cache_pos, cfg):
     """One token through one block against its cache entry (updated in
     place); ``cache_pos`` a 0-d int32 tensor on the device. Returns x. An
     ``attn_moe`` layer routes the token through ``moe_block`` and drops its
-    aux, as the reference does."""
+    aux, as the reference does; a ``moe`` layer holds no cache."""
     eps = cfg.norm_eps
+    if kind == "moe":
+        return x + moe_share_block(p["moe"], rms_norm(x, p["ln"], eps), cfg)[0]
+    if kind == "attn":
+        return x + decode_attention_block(
+            p["attn"], rms_norm(x, p["ln"], eps), cache["k"], cache["v"], cache_pos, cfg,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if kind in ATTN_KINDS:
         x = x + decode_attention_block(
             p["attn"], rms_norm(x, p["ln1"], eps), cache["k"], cache["v"], cache_pos, cfg,
@@ -265,6 +314,8 @@ def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
     recurrent states (SSM, mLSTM, sLSTM) are f32, since they integrate over
     the whole sequence; the Mamba-2 conv context is in the compute dtype."""
     f32 = torch.float32
+    if kind == "moe":
+        return {}
     if kind == "mamba2":
         shp = mamba2_state_shape(cfg, batch)
         return {"ssm": (shp["ssm"], f32), "conv": (shp["conv"], cdt)}
@@ -283,6 +334,8 @@ def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
 def _cache_leaf_axes(kind, cfg) -> dict:
     """{leaf: logical axes} of one block's decode cache entry (the
     reference's ``_cache_shapes`` axes), the tree of :func:`_cache_shapes`."""
+    if kind == "moe":
+        return {}
     if kind == "mamba2":
         return {"ssm": ("batch", "inner_heads", None, None), "conv": ("batch", None, "inner_flat")}
     if kind == "mlstm":
@@ -392,6 +445,16 @@ class Model(nn.Module):
         self.shared_attn = None
         if "shared_attn" in kinds:
             self.shared_attn = _Segment("shared_attn", None, cfg, dtype, self.device)
+        n_moe = 0  # each moe segment's first row of the buffers below
+        for (kind, count), seg in zip(cfg.segments(), self.segments):
+            if kind == "moe":
+                seg.moe_first, n_moe = n_moe, n_moe + count
+        if n_moe:
+            self.register_buffer("router_bias", torch.zeros(
+                (n_moe, cfg.moe_routed), dtype=torch.float32, device=self.device))
+            self.register_buffer("expert_rows", torch.zeros(
+                (n_moe, cfg.moe_num_experts), dtype=torch.int64, device=self.device),
+                persistent=False)
 
     # ------------------------------------------------------------- init
     @torch.no_grad()
@@ -455,6 +518,22 @@ class Model(nn.Module):
                 out[f"shared_attn/{path}"] = ax
         return out
 
+    def device_counters(self) -> dict:
+        """The counters the model accumulates on its device, by name:
+        ``moe.expert_rows`` (moe layers, held experts) int64, the rows each
+        training step routed to each held expert, counted once a step. A
+        tracer reads them around each step (``train.step``'s ``counters``)."""
+        return {"moe.expert_rows": self.expert_rows} if hasattr(self, "expert_rows") else {}
+
+    def _layers(self, kind, seg) -> list:
+        """``seg``'s per-layer trees; a ``moe`` segment's with each layer's
+        correction bias and rows counter, rows of the model's buffers."""
+        layers = seg.layers()
+        if kind == "moe":
+            for i, lp in enumerate(layers, seg.moe_first):
+                lp["moe"].update(bias=self.router_bias[i], rows=self.expert_rows[i])
+        return layers
+
     # ---------------------------------------------------------- forward
     def _embed_tokens(self, tokens):
         return F.embedding(tokens, self.embed).to(_dtype(self.cfg.compute_dtype))
@@ -508,12 +587,12 @@ class Model(nn.Module):
                 caches.append(entry)
                 continue
             entries = []
-            for lp in seg.layers():
+            for lp in self._layers(kind, seg):
                 if ckpt:
                     # The block draws no random numbers: no RNG state to
                     # keep, and a CUDA graph's capture may not read it.
                     x, aux = checkpoint(_train_block, kind, lp, x, cfg, use_reentrant=False,
-                                        preserve_rng_state=False)
+                                        preserve_rng_state=False, context_fn=_recompute_context)
                 else:
                     x, entry, aux = _block(kind, lp, x, cfg, want_cache)
                     entries.append(entry)
@@ -585,7 +664,7 @@ class Model(nn.Module):
                 x = _decode_block(kind, self.shared_attn.values(), x,
                                   {k: t[0] for k, t in cache.items()}, cache_pos, cfg)
                 continue
-            for i, lp in enumerate(seg.layers()):
+            for i, lp in enumerate(self._layers(kind, seg)):
                 x = _decode_block(kind, lp, x, {k: t[i] for k, t in cache.items()},
                                   cache_pos, cfg)
         return self._logits(x), caches

@@ -36,6 +36,13 @@ work (one at the first device span, one at read-out). Off the card a
 device span is a host span; while the current stream captures a CUDA
 graph it records nothing.
 
+A device span may also read *device counters*, tensors that the work
+accumulates on the card (``counters={name: tensor}``, e.g. a model's
+``device_counters()``): each is copied on the span's stream at entry and
+at exit, never read on the host inside the span, and resolved at read-out
+into ``args["counters"][name]``, the exit copy less the entry copy as
+nested lists, the span's own counts.
+
 Design notes:
 
 * the ring is a ``collections.deque(maxlen=capacity)`` — appends are
@@ -74,6 +81,9 @@ __all__ = [
 
 #: Args key of a device span's unresolved ``(start, end)`` events.
 _DEV = "_dev"
+#: Args key of a device span's unresolved counter copies, ``{name: (at
+#: entry, at exit)}``.
+_CNT = "_cnt"
 #: ``Tracer.device_mark``'s answer while the current stream captures.
 _CAPTURING = object()
 
@@ -127,20 +137,27 @@ class _DeviceSpan(_Span):
     """A span that also brackets the work it queues on ``device``'s
     current stream with two timing events."""
 
-    __slots__ = ("_device", "_mark")
+    __slots__ = ("_device", "_mark", "_counters", "_before")
 
-    def __init__(self, tracer: "Tracer", name: str, cat: str, args, device):
+    def __init__(self, tracer: "Tracer", name: str, cat: str, args, device,
+                 counters=None):
         super().__init__(tracer, name, cat, args)
         self._device = device
+        self._counters = counters or {}
 
     def __enter__(self):
         self._mark = self._tracer.device_mark(self._device)
+        if self._mark is not _CAPTURING:
+            self._before = {k: t.clone() for k, t in self._counters.items()}
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         if self._mark is not _CAPTURING:
+            if self._counters:
+                self.args = {**(self.args or {}), _CNT: {
+                    k: (self._before[k], t.clone()) for k, t in self._counters.items()}}
             self._tracer.complete(
                 self.name, self.cat, self._t0, t1 - self._t0, self.args,
                 mark=self._mark,
@@ -237,8 +254,8 @@ class Tracer:
     def span(self, name: str, cat: str = "", **args) -> _Span:
         return _Span(self, name, cat, args or None)
 
-    def device_span(self, name: str, cat: str, device, **args) -> _Span:
-        return _DeviceSpan(self, name, cat, args or None, device)
+    def device_span(self, name: str, cat: str, device, *, counters=None, **args) -> _Span:
+        return _DeviceSpan(self, name, cat, args or None, device, counters)
 
     def device_mark(self, device):
         """Start a device interval on ``device``'s current stream: a
@@ -305,6 +322,10 @@ class Tracer:
             for args in pending:
                 t0, dur = self._clock.resolve(*args.pop(_DEV))
                 args["dev_ts"], args["dev_dur"] = t0 - self._epoch, dur
+        for ev in snapshot:
+            if ev[5] and _CNT in ev[5]:
+                ev[5]["counters"] = {k: (after - before).tolist()
+                                     for k, (before, after) in ev[5].pop(_CNT).items()}
         return snapshot
 
     def realtime_ns(self, ts: float) -> int:

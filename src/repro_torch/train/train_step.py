@@ -99,7 +99,8 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
     With a tracer installed each call is a ``train.step`` device span
     (category ``compute``; args ``step``, the step's own call count, and
     ``replay``), whose device interval is the step's work on the current
-    stream; a graph's capture records none.
+    stream, and which reads the model's ``device_counters()`` around the
+    step (``args["counters"]``); a graph's capture records none.
     """
     step = _eager_train_step(model, run_cfg, optimizer)
     return GraphTrain(model, step) if _one_card(model) else step
@@ -167,7 +168,8 @@ def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         if tracer is None:
             return one_step(state, batch)
         with tracer.device_span("train.step", "compute", model.device,
-                                step=train_step.calls, replay=False):
+                                counters=model.device_counters(), step=train_step.calls,
+                                replay=False):
             return one_step(state, batch)
 
     train_step.calls = 0
@@ -276,7 +278,8 @@ class GraphTrain:
         if tracer is None:
             return state, self._replay(batch)
         with tracer.device_span("train.step", "compute", self.model.device,
-                                step=self.calls, replay=True):
+                                counters=self.model.device_counters(), step=self.calls,
+                                replay=True):
             return state, self._replay(batch)
 
     def _replay(self, batch: dict) -> dict:

@@ -263,17 +263,25 @@ COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
 #: them) where it may differ from the reference: the tracer's device spans
 #: and its CLOCK_REALTIME origin, attribution by device intervals with the
 #: DESIGN §6 model columns gone, the stager's loss-token count in place of
-#: its host-clock overlap ratio, and the loader's pack counting its
-#: loss-bearing tokens and carrying its epoch. Every other section stays
-#: the reference's, byte for byte.
+#: its host-clock overlap ratio, the loader's pack counting its
+#: loss-bearing tokens and carrying its epoch, the tracer's device
+#: counters, and the configurations' fields, counts and registry entry for
+#: the port's own nemotron-h family. Every other section stays the
+#: reference's, byte for byte.
 CHANGED = {
+    "configs/__init__.py": {"from .", "ARCHS", "reduced"},
+    "configs/base.py": {f"ModelConfig.{n}" for n in (
+        "family", "moe_impl", "moe_router_experts", "moe_routed_scale",
+        "moe_shared_ff", "attn_every", "ssm_groups", "ssm_heads", "ssm_gated_norm",
+        "layer_pattern", "rope", "d_inner", "moe_routed", "moe_shared_width", "param_count",
+        "_block_params", "active_param_count", "block_layout")},
     "core/loader.py": {"RedoxLoader.epoch_device", "RedoxLoader._pack"},
     "core/stats.py": {"DeviceStats.__doc__", "DeviceStats.loss_tokens",
                       "DeviceStats.overlap_fraction"},
     "obs/__init__.py": {"__doc__", "from repro.obs.report", "__all__"},
     "obs/report.py": {"__doc__", "__all__", "_intervals_by_stage", "model_columns",
                       "format_report"},
-    "obs/tracer.py": {"__doc__", "__all__", "_DEV", "_CAPTURING", "_NullSpan.note",
+    "obs/tracer.py": {"__doc__", "__all__", "_DEV", "_CNT", "_CAPTURING", "_NullSpan.note",
                       "_Span.note", "_DeviceSpan", "_realtime_offset_ns", "_DeviceClock",
                       "Tracer.__init__", "Tracer.device_span", "Tracer.device_mark",
                       "Tracer.complete", "Tracer.events", "Tracer.realtime_ns",

@@ -268,11 +268,19 @@ def test_bridge_round_trip_is_bit_exact(cfg, dtype):
 
 def test_unported_kinds_raise():
     """Every registered arch builds, with ``moe_impl="a2a"`` too; that
-    one's forward raises without a mesh whose "model" axis it needs."""
+    one's forward raises without a mesh whose "model" axis it needs. The
+    archs the JAX package registers build from its configurations; the
+    port's own (nemotron-h) from the port's."""
+    from repro.configs import ARCHS as J_ARCHS
+    from repro_torch.configs import get_config as port_config
     from repro_torch.configs import list_archs
+    from repro_torch.configs import reduced as port_reduced
 
     for arch in list_archs():
-        build_model(reduced(get_config(arch)), device="cpu")
+        if arch in J_ARCHS:
+            build_model(reduced(get_config(arch)), device="cpu")
+        else:
+            build_model(port_reduced(port_config(arch)), device="cpu")
     cfg = dataclasses.replace(reduced(get_config("deepseek-moe-16b")), moe_impl="a2a")
     model = build_model(cfg, device="cpu").init(0)
     with pytest.raises(RuntimeError, match="sharding ctx"):

@@ -118,7 +118,8 @@ def test_shard_is_the_identity_without_a_context_and_for_plain_tensors():
     assert current_ctx() is None
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+# the archs both packages register (nemotron-3-nano-30b-a3b is the port's alone)
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) & set(J_ARCHS)))
 def test_param_state_and_cache_axes_equal_the_reference(arch):
     cfg, jcfg = reduced(ARCHS[arch]), j_reduced(J_ARCHS[arch])
     model, jmodel = Model(cfg, device="meta"), JModel(jcfg)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.configs import ARCHS as J_ARCHS
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import get_config as j_get_config
 from repro.launch import specs as jspecs
@@ -19,12 +20,16 @@ from repro_torch.models.convert import to_numpy
 
 pytestmark = pytest.mark.torch_port
 
+#: The archs both packages register (nemotron-3-nano-30b-a3b is the
+#: port's alone: ``test_torch_nemotron.py`` holds it to its plain reference).
+BOTH = sorted(set(ARCHS) & set(J_ARCHS))
+
 
 def _dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", BOTH)
 def test_specs_match_the_reference(arch):
     cfg, jcfg = get_config(arch), j_get_config(arch)
     for name in J_SHAPES:
@@ -42,7 +47,7 @@ def test_specs_match_the_reference(arch):
             assert _dtype_name(t.dtype) == jnp.dtype(ref[k].dtype).name, (name, k)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", BOTH)
 def test_dummy_inputs_are_bit_equal(arch):
     cfg = get_config(arch)
     s = cfg.frontend_len + 16 if cfg.frontend == "patch" else 32
