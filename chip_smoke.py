@@ -37,7 +37,11 @@ and each of which prints its wall time:
    library call computing the same function on the device (a CUDA graph
    of many calls, CUDA events), and computes its bound from the inputs;
    the attention kernels at each serving path's shapes, deepseek-moe-16b's
-   16/16 heads of 128 among them.
+   16/16 heads of 128 among them. The flash training route (the forward
+   with its log-sum-exp, the backward) at the four benchmark cells'
+   attention shapes: output, log-sum-exp and dq, dk, dv against the plain
+   version in f32 under autograd (2e-2 scale-normalised, log-sum-exp
+   1e-4), then timed beside its bound.
    The two gathers also run over their edge grid (``chunk_gather/
    edges.py``: 16-byte and scalar paths, slot views at offsets 0-3, rows
    at run, warp and block edges, n of 0, 1, 3, 4, 5, S and S + 1,
@@ -148,8 +152,8 @@ and each of which prints its wall time:
    tokens) and phase 4b's profile of the Adafactor run (12b); then (12c)
    phi3-medium-14b at full width cut to 2 layers, B=1, S=4096, bf16:
    ``_chunked_attention_vecq`` against ``_chunked_attention`` on the same
-   q/k/v (2e-2), and 2 AdamW train steps through the vecq path with finite
-   losses;
+   q/k/v (2e-2), and 2 AdamW train steps, which attend through the flash
+   training kernels (plain bf16 tensors on one card), with finite losses;
 13. the all-to-all MoE: phase 9's run (deepseek-moe-16b full width and
    depth, bf16, B=8, a 1920-token prompt, 128 new tokens) with
    ``moe_impl="a2a"``, through the port's prefill and decode steps under a
@@ -256,6 +260,17 @@ times included) and phases 5, 5b and 5c, and prints them as JSON last.
     python3 chip_smoke.py --examples
 
 runs phases 1-2, 14, 15 and 16 and prints them as JSON last.
+
+    python3 chip_smoke.py --flash
+
+runs phases 1-2 and phase 3's flash-attention rows: the prefill forward's
+times (tinyllama's and deepseek-moe's shapes, D 64 and 128) and the
+training kernels' (the forward with its log-sum-exp and the backward) at
+the four benchmark cells' shapes: the training route's output, log-sum-exp
+and gradients against the plain version in f32 (a mismatch fails), then
+the times, each beside its bound, the plain version under autograd and
+``scaled_dot_product_attention``'s forward and backward (yardstick only),
+and prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -1178,6 +1193,133 @@ def flash_timing(device, b: int, s: int, h: int, kvh: int, *, d: int = 64, calls
     return {"max_abs_err": abs_err, "max_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": t["library_ms"],
             "flops": flops, "bytes": moved}
+
+
+#: The training kernels' rows: the benchmark cells' attention shapes (B, S,
+#: H, KVH, D, causal, window) and the plain version's batch (B = 1 where
+#: the f32 (B, H, S, S) arrays of the full batch would not fit beside the
+#: rest; its time is then scaled by B).
+FLASH_TRAIN_SHAPES = {
+    "hubert-xlarge.frames2k": ((8, 2048, 16, 16, 80, False, 0), 8),
+    "hubert-xlarge.frames512": ((32, 512, 16, 16, 80, False, 0), 32),
+    "zamba2-1.2b.tokens2k": ((2, 2048, 32, 32, 64, True, 4096), 2),
+    "nemotron-3-nano-30b-a3b.tokens4k": ((4, 4096, 32, 2, 128, True, 0), 1),
+}
+
+
+#: The training route against the plain version in f32 under autograd:
+#: scale-normalised max error of the output and of dq, dk, dv (the card
+#: tests' bound: the kernels round P and dS to bf16 before their
+#: products), and the largest gap of the f32 log-sum-exp.
+FLASH_TRAIN_TOL = 2e-2
+FLASH_LSE_TOL = 1e-4
+
+
+def check_flash_train(device) -> dict:
+    """The training kernels at the cells' shapes. First the route itself:
+    ``flash_attention_gqa`` on bf16 tensors that require grad (its
+    ``_FlashTrain`` forward with the log-sum-exp and its backward), on the
+    first ``b_plain`` rows against ``attention_gqa_ref`` in f32 under
+    autograd: out, dq, dk and dv within FLASH_TRAIN_TOL scale-normalised,
+    and the forward's log-sum-exp within FLASH_LSE_TOL of the f32 masked
+    logits'; a mismatch fails. Then the same launches' device time a call
+    in a CUDA graph (the forward with its log-sum-exp; the backward:
+    pre-pass, main kernel, dQ conversion, GQA reduction), against the bound
+    (4 B H D P and 10 B H D P FLOP at 989 TFLOP/s, P the kept pairs, D the
+    true head dim), the plain version (``attention_gqa_ref`` in bf16, the
+    forward and its autograd backward) and ``scaled_dot_product_attention``
+    forward and backward (a yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (_launch, _launch_bwd,
+                                                         attention_flops, flash_attention_gqa)
+    from repro_torch.kernels.flash_attention.ref import attention_gqa_ref
+    from repro_torch.kernels.parity import max_err
+
+    rows = {}
+    for cell, ((b, s, h, kvh, d, causal, window), b_plain) in FLASH_TRAIN_SHAPES.items():
+        gen = torch.Generator(device=device).manual_seed(2)
+        q = torch.randn(b, s, h, d, generator=gen, device=device).bfloat16()
+        k, v = (torch.randn(b, s, kvh, d, generator=gen, device=device).bfloat16()
+                for _ in range(2))
+        g = torch.randn(b, s, h, d, generator=gen, device=device).bfloat16()
+
+        got = [x.clone().requires_grad_() for x in (q, k, v)]
+        flash_out = flash_attention_gqa(*got, causal=causal, window=window)
+        flash_out.backward(g)
+        want = [x[:b_plain].float().requires_grad_() for x in (q, k, v)]
+        ref_out = attention_gqa_ref(*want, causal=causal, window=window)
+        ref_out.backward(g[:b_plain].float())
+        errs = {name: max_err(a[:b_plain], r) for name, a, r in
+                zip(("out", "dq", "dk", "dv"), [flash_out] + [x.grad for x in got],
+                    [ref_out] + [x.grad for x in want])}
+        del got, want, flash_out, ref_out
+        out, lse = _launch(q, k, v, causal, window, 0.0, lse=True)
+        with torch.no_grad():
+            kk = torch.repeat_interleave(k[:b_plain].float(), h // kvh, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q[:b_plain].float(), kk) * d**-0.5
+            qpos = torch.arange(s, device=device)[:, None]
+            kpos = torch.arange(s, device=device)[None, :]
+            keep = torch.ones((s, s), dtype=torch.bool, device=device)
+            if causal:
+                keep &= kpos <= qpos
+            if window:
+                keep &= kpos > qpos - window
+            lse_want = torch.logsumexp(logits.masked_fill_(~keep, -torch.inf), dim=-1)
+            errs["lse"] = float((lse[:b_plain] - lse_want).abs().max())
+            del kk, logits, lse_want
+        torch.cuda.empty_cache()
+        if not all(e <= FLASH_TRAIN_TOL for n, e in errs.items() if n != "lse") or \
+                not errs["lse"] <= FLASH_LSE_TOL:
+            fail(f"flash training at {cell}: errors {errs} against the f32 plain version "
+                 f"(limits {FLASH_TRAIN_TOL}, log-sum-exp {FLASH_LSE_TOL})")
+
+        fwd = [graph_ms(lambda: _launch(q, k, v, causal, window, 0.0, lse=True), calls=5,
+                        reps=5) for _ in range(2)]
+        bwd = [graph_ms(lambda: _launch_bwd(q, k, v, out, lse, g, causal, window, 0.0),
+                        calls=3, reps=5) for _ in range(2)]
+        pq, pk, pv, pg = (x[:b_plain].clone().requires_grad_(x is not g) for x in (q, k, v, g))
+
+        def plain():
+            o = attention_gqa_ref(pq, pk, pv, causal=causal, window=window)
+            return torch.autograd.grad(o, (pq, pk, pv), pg)
+
+        plain_ms = graph_ms(plain, calls=1, reps=3) * b / b_plain
+        del pq, pk, pv, pg
+        torch.cuda.empty_cache()
+        lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        lg = g.transpose(1, 2).contiguous()
+
+        def library():
+            o = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal, enable_gqa=True)
+            return torch.autograd.grad(o, (lq, lk, lv), lg)
+
+        library_ms = graph_ms(library, calls=3, reps=5)
+        ff = attention_flops((b, s, h, d), causal, window)
+        fb = attention_flops((b, s, h, d), causal, window, backward=True)
+        row = {"shape": [b, s, h, kvh, d, causal, window], "fwd_ms": statistics.median(fwd),
+               "bwd_ms": statistics.median(bwd), "fwd_runs_ms": fwd, "bwd_runs_ms": bwd,
+               "fwd_bound_ms": ff / BF16_FLOP_PER_S * 1e3,
+               "bwd_bound_ms": fb / BF16_FLOP_PER_S * 1e3, "plain_fwd_bwd_ms": plain_ms,
+               "plain_batch": b_plain, "library_fwd_bwd_ms": library_ms, "errors": errs}
+        row["fwd_roofline"] = 100 * row["fwd_bound_ms"] / row["fwd_ms"]
+        row["bwd_roofline"] = 100 * row["bwd_bound_ms"] / row["bwd_ms"]
+        print(f"flash training at {cell} (B, S, H/KVH, D) = ({b}, {s}, {h}/{kvh}, {d}) "
+              f"causal {causal} window {window}: forward with lse {fwd[0]:.4f} / {fwd[1]:.4f} ms "
+              f"(bound {row['fwd_bound_ms']:.4f}, {row['fwd_roofline']:.1f}%), backward "
+              f"{bwd[0]:.4f} / {bwd[1]:.4f} ms (bound {row['bwd_bound_ms']:.4f}, "
+              f"{row['bwd_roofline']:.1f}%); plain forward + backward {plain_ms:.3f} ms"
+              f"{'' if b_plain == b else f' (B = {b_plain}, times {b // b_plain})'}; "
+              f"library (scaled_dot_product_attention) forward + backward {library_ms:.4f} ms; "
+              f"against the f32 plain version (B = {b_plain}): out {errs['out']:.3e}, dq "
+              f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} (limit "
+              f"{FLASH_TRAIN_TOL}), log-sum-exp {errs['lse']:.2e} (limit {FLASH_LSE_TOL})",
+              flush=True)
+        rows[cell] = row
+        del q, k, v, g, out, lse, lq, lk, lv, lg
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_decode_main(device) -> dict:
@@ -2866,12 +3008,14 @@ def vecq_check(device) -> dict:
     query blocks of 1024, all at once) against ``_chunked_attention`` on
     the same q/k/v (40 query heads, 10 kv heads expanded, head dim 128),
     scale-normalised within VECQ_TOL; then 2 AdamW train steps through
-    ``attention_block``, which must take the vecq path, with finite losses
-    (the first near ln(vocab))."""
+    ``attention_block``, which on plain bf16 tensors on one card must take
+    the flash training kernels (a backward launch a layer a step), with
+    finite losses (the first near ln(vocab))."""
     import numpy as np
     import torch
 
     from repro_torch.configs import RunConfig, get_config
+    from repro_torch.kernels.flash_attention.ops import train_calls
     from repro_torch.models import attention, build_model
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.train.train_step import build_train_step, init_train_state
@@ -2904,21 +3048,21 @@ def vecq_check(device) -> dict:
     feed = {"tokens": torch.from_numpy(tokens[:, :-1]).to(device),
             "targets": torch.from_numpy(tokens[:, 1:]).to(device),
             "loss_mask": torch.ones((1, s), device=device)}
-    losses = []
-    with counting_vecq() as calls:
-        for _ in range(2):
-            state, m = step(state, feed)
-            losses.append(float(m["loss"]))
+    losses, before = [], dict(train_calls)
+    for _ in range(2):
+        state, m = step(state, feed)
+        losses.append(float(m["loss"]))
+    calls = {k: train_calls[k] - before[k] for k in ("forward", "backward")}
     peak = torch.cuda.max_memory_allocated()
     print(f"phi3-medium-14b, {VECQ_LAYERS} layers at full width, B=1, S={s}, AdamW, remat "
-          f"dots: losses {losses}; {len(calls)} vecq calls (forward and remat recompute); "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    if len(calls) < 2 * VECQ_LAYERS:
-        fail(f"attention_block took the vecq path {len(calls)} times in 2 steps")
+          f"dots: losses {losses}; flash training launches {calls} (forward with the remat "
+          f"recompute, backward); max_memory_allocated {peak / 2**30:.2f} GiB")
+    if calls["backward"] != 2 * VECQ_LAYERS:
+        fail(f"attention_block took the flash training kernels {calls} in 2 steps")
     if not all(math.isfinite(x) for x in losses) or abs(losses[0] - math.log(cfg.vocab_size)) > 2:
         fail(f"phi3 losses {losses}: not finite, or the first not near ln({cfg.vocab_size})")
     del model, state
-    return {"layers": VECQ_LAYERS, "seq_len": s, "vecq_err": err, "vecq_calls": len(calls),
+    return {"layers": VECQ_LAYERS, "seq_len": s, "vecq_err": err, "flash_calls": calls,
             "losses": losses, "max_memory_allocated_gib": peak / 2**30}
 
 
@@ -3857,6 +4001,10 @@ def main(argv=None) -> int:
                              "cases included), and phases 5, 5b and 5c (tinyllama served "
                              "through the decode graph, its profile beside the eager step's, "
                              "the graph against the eager step); print them as JSON last")
+    parser.add_argument("--flash", action="store_true",
+                        help="run only phases 1-2 and phase 3's flash-attention rows (the "
+                             "prefill forward's times and the training kernels' at the "
+                             "benchmark cells' shapes); print them as JSON last")
     parser.add_argument("--examples", action="store_true",
                         help="run only phases 1-2, 14 (the example twins), 15 "
                              "(convergence parity) and 16 (the compiled train step); print "
@@ -3911,6 +4059,14 @@ def main(argv=None) -> int:
         print(json.dumps({"examples_path": examples_run, "convergence": conv_run,
                           "train_graph": graph_run}))
         return 0
+    if args.flash:
+        phase("3. flash attention: prefill times and the training kernels' rows")
+        flash = check_flash_main(device)
+        flash["training"] = check_flash_train(device)
+        phase(None)
+        print(card_line)
+        print(json.dumps({"flash_attention": flash}))
+        return 0
     if args.decode:
         phase("3. the attention kernels' parity and times (softcap cases included)")
         check_attention_grid(device)
@@ -3938,6 +4094,7 @@ def main(argv=None) -> int:
     kernels["chunk_gather"].update(launches=0, main_path=None)
     check_attention_grid(device)
     kernels["flash_attention"] = check_flash_main(device)
+    kernels["flash_attention"]["training"] = check_flash_train(device)
     kernels["decode_attention"] = check_decode_main(device)
     check_ssd_grid(device)
     kernels["ssd_scan"] = check_ssd_main(device)

@@ -1,11 +1,16 @@
 """GQA attention: dense, chunked, prefill and decode paths (``repro/models/attention.py``).
 
 Layouts as in the reference: activations (B, S, d_model); q (B, S, H, D);
-k/v (B, S, KVH, D); weights (in, out). The training paths are plain
-PyTorch and follow the reference op for op: QKᵀ in the compute dtype then
-cast to f32 and scaled, masks at ``NEG_INF = -1e30`` (not ``-inf``), the
-softmax in f32 cast back to ``q.dtype`` before the PV product, and the
-GQA expand as ``repeat_interleave`` (``jnp.repeat``).
+k/v (B, S, KVH, D); weights (in, out). Training on plain bf16 CUDA tensors
+of a head dim the flash kernels are built for runs through
+``flash_attention_gqa``, whose forward and backward are the hand-written
+kernels (no (B, H, S, S) array in either), on the un-expanded K and V.
+Every other training call (the CPU, which the JAX-parity tests use,
+DTensors in the dry run, f32, an unbuilt head dim such as kimi's 112)
+takes the plain paths, which follow the reference op for op: QKᵀ in the
+compute dtype then cast to f32 and scaled, masks at ``NEG_INF = -1e30``
+(not ``-inf``), the softmax in f32 cast back to ``q.dtype`` before the PV
+product, and the GQA expand as ``repeat_interleave`` (``jnp.repeat``).
 
 Serving goes through the two attention kernels. Prefill (``want_cache``)
 is a causal forward with no gradient, so it calls ``flash_attention_gqa``;
@@ -14,11 +19,10 @@ updates in place (the reference donates it). Both pass ``logit_softcap``
 to the kernel, which caps the scaled logits where the reference's jnp
 does. Decode takes its position as a 0-d int32 tensor on the model's
 device and reads nothing back to the host, so a CUDA graph can capture
-it (``train/train_step.py``). Training keeps the plain
-paths: the flash kernel has no backward and refuses inputs that require
-grad. Above ``attn_dense_threshold`` a config with ``attn_shard="seq"``
-(phi3, llava) trains through ``_chunked_attention_vecq``, the others
-through ``_chunked_attention``. A config with ``rope=False`` (nemotron-h,
+it (``train/train_step.py``). On the plain paths, above
+``attn_dense_threshold`` a config with ``attn_shard="seq"`` (phi3, llava)
+trains through ``_chunked_attention_vecq``, the others through
+``_chunked_attention``. A config with ``rope=False`` (nemotron-h,
 whose Mamba-2 layers carry position) rotates neither q nor k.
 """
 
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS
 from ..kernels.flash_attention.ops import flash_attention_gqa
 from ..parallel.axes import per_shard, shard
 from .common import apply_rope, make_rope, scaled_init
@@ -214,11 +219,22 @@ def _per_shard(fn, q, k, v, cfg):
                      [(q, same), (k, same), (v, same)], [same])
 
 
+def flash_trains(kind: type, device: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a training call on q, k and v of tensor type ``kind``, device
+    type ``device``, ``dtype`` and ``head_dim`` attends in the flash kernels:
+    plain (not DTensor) bf16 tensors on the card of a head dim they are
+    built for."""
+    return (kind is torch.Tensor and device == "cuda" and dtype == torch.bfloat16
+            and head_dim in FLASH_HEAD_DIMS)
+
+
 def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     """Full-sequence attention (train / prefill). Returns (out, (k, v)).
 
-    With ``want_cache`` (prefill, no gradient) the attention runs in the
-    flash-attention kernel; otherwise in the plain dense or chunked path.
+    With ``want_cache`` (prefill, no gradient), or in training where
+    :func:`flash_trains` holds, the attention runs in the flash-attention
+    kernels (in training with their backward); otherwise in the plain
+    dense or chunked path.
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
@@ -226,7 +242,7 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
         positions = torch.arange(s, device=x.device)[None, :]
     q, k = _rotate(q, k, positions, cfg)
     kv = (k, v)
-    if want_cache:
+    if want_cache or flash_trains(type(q), q.device.type, q.dtype, q.shape[-1]):
         out = flash_attention_gqa(q, k, v, causal=cfg.causal, window=cfg.window,
                                   softcap=cfg.logit_softcap)
         out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]

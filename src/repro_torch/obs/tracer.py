@@ -43,6 +43,14 @@ at exit, never read on the host inside the span, and resolved at read-out
 into ``args["counters"][name]``, the exit copy less the entry copy as
 nested lists, the span's own counts.
 
+*Host tallies* are process-wide dicts of counts that code adds to as it
+queues device work (:func:`host_tally`, e.g. ``attn.flash_calls``, the
+flash-attention training launches and their FLOPs that
+``kernels/flash_attention/ops.py`` counts). A ``train.step`` span
+(``train/train_step.py``) carries every tally's change over its step in
+its args under the tally's name (:func:`tallies`, :func:`tallies_since`);
+a graph replay carries what its capture queued, as it runs the same nodes.
+
 Design notes:
 
 * the ring is a ``collections.deque(maxlen=capacity)`` — appends are
@@ -74,8 +82,11 @@ __all__ = [
     "disable",
     "enable",
     "get",
+    "host_tally",
     "instant",
     "span",
+    "tallies",
+    "tallies_since",
     "tracing",
 ]
 
@@ -86,6 +97,8 @@ _DEV = "_dev"
 _CNT = "_cnt"
 #: ``Tracer.device_mark``'s answer while the current stream captures.
 _CAPTURING = object()
+#: The host tallies by name (:func:`host_tally`).
+_TALLIES: dict[str, dict] = {}
 
 
 class _NullSpan:
@@ -423,6 +436,23 @@ def disable() -> "Tracer | None":
 def get() -> "Tracer | None":
     """The installed tracer, or None when tracing is off."""
     return _active
+
+
+def host_tally(name: str, *keys: str) -> dict:
+    """The host tally ``name``, made on first use with ``keys`` at 0: a
+    dict of counts that code queuing device work adds to."""
+    return _TALLIES.setdefault(name, dict.fromkeys(keys, 0))
+
+
+def tallies() -> dict:
+    """A copy of every host tally, ``{name: {key: count}}``."""
+    return {name: dict(t) for name, t in _TALLIES.items()}
+
+
+def tallies_since(before: dict) -> dict:
+    """Every host tally's change since ``before``, a :func:`tallies` copy."""
+    return {name: {k: v - before.get(name, {}).get(k, 0) for k, v in t.items()}
+            for name, t in _TALLIES.items()}
 
 
 def span(name: str, cat: str = "", **args):

@@ -100,7 +100,10 @@ def build_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
     (category ``compute``; args ``step``, the step's own call count, and
     ``replay``), whose device interval is the step's work on the current
     stream, and which reads the model's ``device_counters()`` around the
-    step (``args["counters"]``); a graph's capture records none.
+    step (``args["counters"]``); a graph's capture records none. It also
+    carries each of the tracer's host tallies (``trace.host_tally``, e.g.
+    ``attn.flash_calls``) under its name: the eager step's own counts, and
+    a replay's those its capture queued, since it runs the same nodes.
     """
     step = _eager_train_step(model, run_cfg, optimizer)
     return GraphTrain(model, step) if _one_card(model) else step
@@ -167,10 +170,13 @@ def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         tracer = trace.get()
         if tracer is None:
             return one_step(state, batch)
+        before = trace.tallies()
         with tracer.device_span("train.step", "compute", model.device,
                                 counters=model.device_counters(), step=train_step.calls,
-                                replay=False):
-            return one_step(state, batch)
+                                replay=False) as span:
+            out = one_step(state, batch)
+            span.note(**trace.tallies_since(before))
+            return out
 
     train_step.calls = 0
     train_step.captured = False
@@ -248,8 +254,9 @@ class GraphTrain:
 
     With a tracer installed, a replay (the static-input copies and the
     graph) is a ``train.step`` device span with ``replay=True`` and
-    ``step`` this object's call count; the first call's eager step is the
-    eager function's own span, and its capture records nothing.
+    ``step`` this object's call count and the host tallies' counts its
+    capture queued; the first call's eager step is the eager function's
+    own span, and its capture records nothing.
     """
 
     def __init__(self, model: Model, step):
@@ -279,7 +286,7 @@ class GraphTrain:
             return state, self._replay(batch)
         with tracer.device_span("train.step", "compute", self.model.device,
                                 counters=self.model.device_counters(), step=self.calls,
-                                replay=True):
+                                replay=True, **self.tallies):
             return state, self._replay(batch)
 
     def _replay(self, batch: dict) -> dict:
@@ -301,8 +308,10 @@ class GraphTrain:
         (state, metrics), here = _warm_up(lambda: self.step(state, self.inputs), device)
         for v in metrics.values():
             v.record_stream(here)
+        before = trace.tallies()
         graph, (_, self.metrics), self._launches = _capture_graph(
             lambda: self.step(state, self.inputs))
+        self.tallies = trace.tallies_since(before)
         self.nodes = graph_nodes(graph)
         self._ptrs = _state_ptrs(state)
         self.graph = graph

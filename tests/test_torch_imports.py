@@ -265,9 +265,9 @@ COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
 #: DESIGN §6 model columns gone, the stager's loss-token count in place of
 #: its host-clock overlap ratio, the loader's pack counting its
 #: loss-bearing tokens and carrying its epoch, the tracer's device
-#: counters, and the configurations' fields, counts and registry entry for
-#: the port's own nemotron-h family. Every other section stays the
-#: reference's, byte for byte.
+#: counters and host tallies, and the configurations' fields, counts and
+#: registry entry for the port's own nemotron-h family. Every other
+#: section stays the reference's, byte for byte.
 CHANGED = {
     "configs/__init__.py": {"from .", "ARCHS", "reduced"},
     "configs/base.py": {f"ModelConfig.{n}" for n in (
@@ -285,7 +285,8 @@ CHANGED = {
                       "_Span.note", "_DeviceSpan", "_realtime_offset_ns", "_DeviceClock",
                       "Tracer.__init__", "Tracer.device_span", "Tracer.device_mark",
                       "Tracer.complete", "Tracer.events", "Tracer.realtime_ns",
-                      "Tracer.device_clock", "Tracer.to_chrome"},
+                      "Tracer.device_clock", "Tracer.to_chrome", "_TALLIES", "host_tally",
+                      "tallies", "tallies_since"},
 }
 
 

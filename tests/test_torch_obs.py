@@ -95,6 +95,23 @@ def test_ring_overflow_counts_dropped():
     assert t.to_chrome()["otherData"]["dropped_events"] == 6
 
 
+def test_host_tally_changes_read_per_name(monkeypatch):
+    """A host tally is made once with its keys at 0 and shared by name;
+    ``tallies_since`` gives each tally's change over a copy, keys added
+    since counted from 0, and the copy does not follow later adds."""
+    monkeypatch.setattr(trace, "_TALLIES", {})
+    a = trace.host_tally("x.calls", "n", "flops")
+    assert a == {"n": 0, "flops": 0} and trace.host_tally("x.calls") is a
+    before = trace.tallies()
+    a["n"] += 2
+    a["flops"] += 10
+    b = trace.host_tally("y.rows", "rows")
+    b["rows"] += 3
+    assert trace.tallies_since(before) == {"x.calls": {"n": 2, "flops": 10},
+                                           "y.rows": {"rows": 3}}
+    assert before == {"x.calls": {"n": 0, "flops": 0}}
+
+
 def test_chrome_export_carries_the_realtime_origin(tmp_path):
     with tracing() as t:
         with trace.span("loader.pack", "decode", step=3) as s:
