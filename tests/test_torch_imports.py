@@ -89,15 +89,15 @@ def test_scan_covers_every_model_module(rel):
 @pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/axes.py",
                                  "parallel/sharding.py", "launch/mesh.py", "launch/specs.py",
                                  "launch/dryrun_lib.py", "launch/dryrun.py",
-                                 "launch/roofline.py", "launch/hlo_cost.py"])
+                                 "launch/roofline.py"])
 def test_scan_covers_the_sharding_and_dry_run_modules(rel):
     """The multi-device layer and the dry run are in the scan too; each
-    imports nothing banned, and torch where it computes (the roofline and
-    the HLO cost model are plain Python)."""
+    imports nothing banned, and torch where it computes (the roofline is
+    plain Python)."""
     assert PORT / rel in set(PORT.rglob("*.py"))
     mods = list(_imports(PORT / rel))
     assert not [m for m in mods if m.split(".")[0] in BANNED]
-    pure = ("parallel/__init__.py", "launch/roofline.py", "launch/hlo_cost.py")
+    pure = ("parallel/__init__.py", "launch/roofline.py")
     assert rel in pure or any(m.split(".")[0] == "torch" for m in mods)
 
 
@@ -236,7 +236,7 @@ def test_serve_cli_refuses_to_run_without_a_card():
 
 #: Files that are byte-for-byte twins of the reference's, apart from the
 #: package name in imports and help texts: the host-side data path, the
-#: configs and the CLI helpers, the data service, and the HLO cost model.
+#: configs and the CLI helpers, and the data service.
 COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
           "configs/deepseek_moe_16b.py", "configs/hubert_xlarge.py",
           "configs/kimi_k2_1t_a32b.py", "configs/llava_next_34b.py",
@@ -254,8 +254,7 @@ COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
           "service/__init__.py", "service/residency.py", "service/service.py",
           "service/transport/__init__.py", "service/transport/ring.py",
           "service/transport/server.py", "service/transport/wire.py",
-          "service/transport/client.py",
-          "launch/hlo_cost.py"]
+          "service/transport/client.py"]
 
 
 #: Copies the port has since changed, each with the sections (a module's
