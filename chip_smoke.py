@@ -7,9 +7,9 @@ Phases, each of which fails the run (exit 1, no result lines) if it fails,
 and each of which prints its wall time:
 
 1. environment: the card's name and power limit (nvidia-smi), versions;
-2. build: the four CUDA kernel packages (chunk_gather, flash_attention,
-   decode_attention, ssd_scan) from the sources in this checkout, one nvcc
-   each, all started together;
+2. build: the five CUDA kernel packages (chunk_gather, flash_attention,
+   decode_attention, ssd_scan, fused_adamw) from the sources in this
+   checkout, one nvcc each, all started together;
 3. kernel parity: every kernel against its plain PyTorch version on the
    card, over the port's parity grid, edge cases and the shapes the main
    paths give it: exact for the two integer gathers, the registry's
@@ -50,7 +50,12 @@ and each of which prints its wall time:
    same harness), with host time per call, and ``chunk_gather_train``
    is timed at the large shape (``train_4k`` as one batch: B = U = 256,
    S = 4096) against its bytes bound, rotating 8 input sets and keeping
-   every output so that no call finds its bytes in the L2;
+   every output so that no call finds its bytes in the L2.
+   3o: the fused clip and AdamW (``fused_adamw``) on the benchmark
+   configurations' real parameter trees, as ``--optim`` below does; its
+   launches on the AdamW training paths (phases 4, 8, 14, 15) go into the
+   ``kernels`` line, and phases 4 and 12 fail unless AdamW launched it
+   and Adafactor and SGDM did not;
 4. training main path: ``repro_torch.launch.train`` at tinyllama-1.1b
    full width (22 layers, d_model 2048, 32/4 heads, vocab 32000, bf16),
    B=8, S=2048, ``--device-path gather --remat dots`` for 6 steps. Checks
@@ -271,6 +276,22 @@ and gradients against the plain version in f32 (a mismatch fails), then
 the times, each beside its bound, the plain version under autograd and
 ``scaled_dot_product_attention``'s forward and backward (yardstick only),
 and prints them as JSON last.
+
+    python3 chip_smoke.py --optim
+
+runs phases 1-2 for ``fused_adamw`` and phase 3o: the global-norm clip and
+AdamW with an f32 master on each benchmark configuration's real parameter
+tree (hubert-xlarge, zamba2-1.2b, nemotron-3-nano-30b-a3b's stage; bf16
+parameters and gradients drawn on the card), as the loop of
+``optim/optimizers.py`` and as the two fused launches, each timed in a CUDA
+graph in turns beside the bound of 30 bytes a parameter at 3.35 TB/s; the
+fused norm against the loop's (1e-6 relative) and across two passes (bit
+for bit), two launches a pass; from one state kept on the host, a fused
+pass against the loop on the gradients clipped by the fused pass's own
+scale, every parameter, m, v and master bit for bit (a mismatch fails);
+and each kernel's time from the profiler.
+No one PyTorch call computes the same update, so there is no library
+yardstick. Prints them as JSON last.
 """
 
 from __future__ import annotations
@@ -302,7 +323,11 @@ LARGE_GATHER_SETS = 8
 BF16_FLOP_PER_S = 989e12
 #: f32 outside the tensor cores (NVIDIA data sheet, 700 W).
 F32_FLOP_PER_S = 67e12
-KERNEL_PACKAGES = ("chunk_gather", "flash_attention", "decode_attention", "ssd_scan")
+KERNEL_PACKAGES = ("chunk_gather", "flash_attention", "decode_attention", "ssd_scan",
+                   "fused_adamw")
+#: The benchmark cells whose configurations' parameter trees phase 3o updates.
+OPTIM_CELLS = ("hubert-xlarge.frames2k", "zamba2-1.2b.tokens2k",
+               "nemotron-3-nano-30b-a3b.tokens4k")
 MAIN_ARGS = ["--arch", "tinyllama-1.1b", "--full", "--nodes", "2", "--batch", "8",
              "--seq-len", "2048", "--device-path", "gather", "--remat", "dots",
              "--steps", "6"]
@@ -1669,6 +1694,9 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         gathers = launches["chunk_gather_train"]
         if gathers == 0 or gathers != stats.steps or gathers != stats.kernel_steps:
             fail(f"kernel launches {gathers} != staged batches {stats.steps}")
+        if (launches["fused_adamw"] > 0) != (args.optimizer == "adamw"):
+            fail(f"{args.optimizer} launched the fused AdamW kernels "
+                 f"{launches['fused_adamw']} times")
         if len(losses) != args.steps or not all(math.isfinite(x) for x in losses):
             fail(f"expected {args.steps} finite losses, got {losses}")
         if abs(losses[0] - math.log(vocab)) > 2.0:
@@ -1696,7 +1724,7 @@ def main_path(argv, *, batch: int, seq_len: int, vocab: int) -> dict:
         store.close()
         print(f"staged batches equal the host stream ({len(staged)} steps)")
     return {
-        "launches": gathers, "losses": losses,
+        "launches": gathers, "optim_launches": launches["fused_adamw"], "losses": losses,
         "tokens_per_s": summary["tokens_per_s"],
         "steady_tokens_per_s": summary["steady_tokens_per_s"],
         "max_memory_allocated_gib": peak / 2**30,
@@ -2559,6 +2587,7 @@ def served_training(server: DataServer) -> dict:
     return {"losses": losses, "tokens_per_s": summary["tokens_per_s"],
             "steady_tokens_per_s": summary["steady_tokens_per_s"],
             "staged_batches": stats.steps, "gather_launches": launches["chunk_gather_train"],
+            "optim_launches": launches["fused_adamw"],
             "storage_bytes": int(agg["physical_bytes"]), "demand_bytes": demand,
             "shared_hits": int(agg["shared_hits"]), "co_tenant_batches": len(want),
             "co_tenant_epoch_s": tenant["epoch_s"],
@@ -2621,7 +2650,8 @@ def autotuned_training() -> dict:
     return {"backend": choice.backend, "readahead": choice.readahead,
             "cache_limit_bytes": choice.cache_limit_bytes, "fidelity": choice.fidelity,
             "predicted_epoch_s": choice.predicted_epoch_s, "losses": summary["losses"],
-            "staged_batches": stats.steps, "gather_launches": gathers}
+            "staged_batches": stats.steps, "gather_launches": gathers,
+            "optim_launches": launches["fused_adamw"]}
 
 
 # --------------------------------------------------------------- phase 9
@@ -3371,7 +3401,8 @@ def example_training() -> dict:
             hold_to_host_stream(f"the example's run to {steps}", staged,
                                 host_loader.epoch(0))
             runs.append({"steps": steps, "start": summary["start"], "launches": gathers,
-                         "losses": losses, "printed_losses": printed,
+                         "optim_launches": launches["fused_adamw"], "losses": losses,
+                         "printed_losses": printed,
                          "tokens_per_s": summary["tokens_per_s"],
                          "steady_tokens_per_s": summary["steady_tokens_per_s"],
                          "ckpt_s": summary["ckpt_s"],
@@ -3581,7 +3612,7 @@ def convergence_cell(name: str, cfg, lr: float, epochs: int, steps: int, device,
     from repro_torch.models import build_model
 
     params, profiled = None, None
-    curves, launches = {}, {}
+    curves, launches, optim_launches = {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_conv_") as tmp:
         runs = [("redox", CONV_SLOTS), ("exact", None), ("redox_small_mem", CONV_SMALL_SLOTS)]
         if yardstick:
@@ -3605,7 +3636,8 @@ def convergence_cell(name: str, cfg, lr: float, epochs: int, steps: int, device,
                 curves[run], profiled = curves[run]
             wall = time.perf_counter() - t0
             batches.close()  # tears the stager's stream down before the counts are read
-            launches[run] = read_launches()["chunk_gather_train"]
+            counts = read_launches()
+            launches[run], optim_launches[run] = counts["chunk_gather_train"], counts["fused_adamw"]
             staged = 0
             if stager is not None:
                 stager.close()
@@ -3641,7 +3673,7 @@ def convergence_cell(name: str, cfg, lr: float, epochs: int, steps: int, device,
                  f"(bound {CONV_TAIL_TOL})")
     out = {"layers": cfg.num_layers, "d_model": cfg.d_model, "params": params, "lr": lr,
            "steps": steps, "tail_means": tails, "gaps": gaps, "launches": launches,
-           "curves": {run: c[::k] for run, c in curves.items()}}
+           "optim_launches": optim_launches, "curves": {run: c[::k] for run, c in curves.items()}}
     if profiled is not None:
         print(f"-- where {name}'s step time goes (torch.profiler, its Redox run's steps "
               f"3-{profile_steps})", flush=True)
@@ -3969,6 +4001,126 @@ def examples_and_convergence(phase, device) -> tuple:
     return examples_run, conv_run, graph_run
 
 
+def optimizer_rows(device) -> dict:
+    """Phase 3o: the clip and AdamW update over each ``OPTIM_CELLS``
+    configuration's real parameter tree, the loop against the fused pass.
+    From one state (two fused passes in, so m and v are not zero) kept on
+    the host, a fused pass and the loop on the gradients clipped by the
+    fused pass's own scale must leave every parameter, m, v and master
+    equal bit for bit; then both are timed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(HERE))
+    from bench import harness
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels.fused_adamw import ops as fused
+    from repro_torch.models import build_model
+    from repro_torch.models.common import flatten_tree
+    from repro_torch.optim import optimizers
+
+    def loop_route():
+        """AdamW's update on card tensors through the loop, as on the CPU."""
+        return mock.patch.object(fused, "takes", lambda *trees: False)
+
+    rows = {}
+    for workload in OPTIM_CELLS:
+        cell = harness.load_cell(workload)
+        meta = flatten_tree(build_model(harness.program_config(cell), device="meta").values())
+        gen = torch.Generator(device=device).manual_seed(0)
+
+        def draw(shape, dtype, std):
+            return (torch.randn(shape, device=device, generator=gen) * std).to(dtype)
+
+        params = {k: draw(v.shape, v.dtype, 0.02) for k, v in meta.items()}
+        grads = {k: draw(v.shape, v.dtype, 1e-3) for k, v in meta.items()}
+        hp = cell.train
+        run = RunConfig(learning_rate=hp["learning_rate"], weight_decay=hp["weight_decay"],
+                        grad_clip=hp["grad_clip"], master_fp32=hp["master_fp32"])
+        opt = optimizers.make_optimizer(run)
+        state = opt.init(params)
+        step = torch.full((), 250, dtype=torch.int32, device=device)
+        n = sum(t.numel() for t in params.values())
+        if not fused.takes(grads, params, state["m"], state["v"], state["master"]):
+            fail(f"{workload}: the fused kernels do not take the tree")
+
+        def loop():
+            with loop_route():
+                return opt.update(grads, state, params, step, run.grad_clip)
+
+        def fused_pass():
+            return opt.update(grads, state, params, step, run.grad_clip)
+
+        launches = fused.clip_adamw_.launches
+        norms = [fused_pass(), fused_pass()]
+        torch.cuda.synchronize()
+        per_pass = (fused.clip_adamw_.launches - launches) // 2
+        want = optimizers.global_norm(grads)
+        norm_err = abs(float(norms[0]) / float(want) - 1)
+        if not torch.equal(norms[0], norms[1]) or norm_err > 1e-6 or per_pass != 2:
+            fail(f"{workload}: fused norms {float(norms[0])!r} / {float(norms[1])!r}, the "
+                 f"loop's {float(want)!r} (relative {norm_err:.2e}), {per_pass} launches a pass")
+
+        trees = {"param": params, "m": state["m"], "v": state["v"], "master": state["master"]}
+        before = {name: {k: t.cpu() for k, t in tree.items()} for name, tree in trees.items()}
+        norm = fused_pass()
+        scale = optimizers.clip_scale(norm, run.grad_clip)
+        differ = []
+        with loop_route():
+            for k, g in grads.items():
+                ref = {name: {k: before[name][k].to(device)} for name in trees}
+                opt.update({k: (g.float() * scale).to(g.dtype)},
+                           {"m": ref["m"], "v": ref["v"], "master": ref["master"]},
+                           ref["param"], step)
+                differ += [f"{k} {name}" for name, tree in trees.items()
+                           if not torch.equal(tree[k], ref[name][k])]
+                del ref
+        if differ:
+            fail(f"{workload}: the fused pass and the loop (the fused scale "
+                 f"{float(scale)!r}) differ in {len(differ)} of {4 * len(grads)} leaves, "
+                 f"first {differ[:4]}")
+        print(f"{workload}: one fused pass equals the loop bit for bit in every parameter, "
+              f"m, v and master ({len(grads)} leaves; clip scale {float(scale)!r})")
+        del before
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fused_pass()
+            torch.cuda.synchronize()
+        kernel_ms = {e.key: e.device_time_total / e.count / 1e3 for e in prof.key_averages()
+                     if "optim_" in e.key}
+        t = turns(fused_pass, loop, calls=2, reps=5)
+        moved = fused.step_bytes(grads, params)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        rows[cell.config["name"]] = row = {
+            "parameters": n, "leaves": len(params), "bytes": moved,
+            "bytes_per_parameter": moved / n, "fused_ms": t["ms"], "fused_runs_ms": t["runs_ms"],
+            "loop_ms": t["plain_ms"], "loop_runs_ms": t["plain_runs_ms"], "bound_ms": bound_ms,
+            "roofline_pct": 100.0 * bound_ms / t["ms"], "kernel_ms": kernel_ms,
+            "launches_per_pass": per_pass, "norm": float(norms[0]), "loop_norm": float(want),
+            "norm_rel_err": norm_err, "clip_scale": float(scale), "equal_to_loop": True}
+        print(f"{workload}: {n:,d} parameters in {len(params)} leaves; loop "
+              f"{row['loop_ms']:.3f} ms, fused {row['fused_ms']:.3f} ms (kernels "
+              f"{json.dumps({k[:60]: round(v, 4) for k, v in kernel_ms.items()})}), bound "
+              f"{bound_ms:.3f} ms ({moved / n:.1f} B a parameter), {row['roofline_pct']:.1f}% "
+              f"of it; norm {row['norm']!r} against the loop's {row['loop_norm']!r}")
+        del params, grads, state, trees, norms, norm, want, meta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def optimizer_kernel_row(rows: dict) -> dict:
+    """The ``kernels`` line's ``fused_adamw`` row: phase 3o's times on the
+    largest tree (nemotron-3-nano-30b-a3b's stage), each tree's row beside."""
+    big = max(rows.values(), key=lambda r: r["parameters"])
+    return {"name": "fused_adamw", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_adamw/fused_adamw.cu",
+            "replaces": "none in the reference (XLA fuses its jnp update)", "launches": None,
+            "equal_to_loop": all(r["equal_to_loop"] for r in rows.values()),
+            "ms": big["fused_ms"], "plain_ms": big["loop_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "bytes": big["bytes"],
+            "parameters": big["parameters"], "trees": rows}
+
+
 def build_all(packages=KERNEL_PACKAGES) -> None:
     """One nvcc per kernel package, all started together."""
     from repro_torch.kernels import build
@@ -4005,6 +4157,10 @@ def main(argv=None) -> int:
                         help="run only phases 1-2 and phase 3's flash-attention rows (the "
                              "prefill forward's times and the training kernels' at the "
                              "benchmark cells' shapes); print them as JSON last")
+    parser.add_argument("--optim", action="store_true",
+                        help="run only phases 1-2 for fused_adamw and phase 3o: the clip and "
+                             "AdamW update on the benchmark configurations' parameter trees, "
+                             "the loop against the fused kernels; print them as JSON last")
     parser.add_argument("--examples", action="store_true",
                         help="run only phases 1-2, 14 (the example twins), 15 "
                              "(convergence parity) and 16 (the compiled train step); print "
@@ -4051,6 +4207,14 @@ def main(argv=None) -> int:
         phase(None)
         print(card_line)
         print(json.dumps({"gathers": times}))
+        return 0
+    if args.optim:
+        build_all(("fused_adamw",))
+        phase("3o. the clip and AdamW update: the loop against the fused kernels")
+        rows = optimizer_rows(device)
+        phase(None)
+        print(card_line)
+        print(json.dumps({"optimizer": rows}))
         return 0
     build_all()
     if args.examples:
@@ -4099,6 +4263,8 @@ def main(argv=None) -> int:
     check_ssd_grid(device)
     kernels["ssd_scan"] = check_ssd_main(device)
     torch.cuda.empty_cache()
+    phase("3o. the clip and AdamW update: the loop against the fused kernels")
+    kernels["fused_adamw"] = optimizer_kernel_row(optimizer_rows(device))
 
     # ------------------------------------------------ 4. training path
     phase("4. training main path: repro_torch.launch.train " + " ".join(MAIN_ARGS))
@@ -4251,6 +4417,19 @@ def main(argv=None) -> int:
                                       for n in cell["launches"].values())}
     kernels["chunk_gather_train"]["launches"] = sum(counts.values())
     kernels["chunk_gather_train"]["launches_by_path"] = counts
+    # The fused optimizer runs wherever AdamW trains on the card: phase 4's
+    # path, phase 8's two, the example trainer's runs and phase 15's; phase
+    # 12's Adafactor and SGDM runs take the loop and launch none.
+    counts = {"main_path": run["optim_launches"],
+              "data_service_path": ds_run["optim_launches"],
+              "autotune_path": ds_run["autotune"]["optim_launches"],
+              "encoder_path": enc_run["optim_launches"],
+              "encoder_sgdm_path": enc_run["sgdm"]["optim_launches"],
+              "examples_path": sum(r["optim_launches"] for r in examples_run["train"]["runs"]),
+              "convergence_path": sum(n for cell in conv_run.values()
+                                      for n in cell["optim_launches"].values())}
+    kernels["fused_adamw"]["launches"] = sum(counts.values())
+    kernels["fused_adamw"]["launches_by_path"] = counts
 
     # ----------------------------------------------------------- result
     print(f"phase wall times, s: {json.dumps({k: round(v, 1) for k, v in phase.times.items()})}")

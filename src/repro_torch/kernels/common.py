@@ -133,11 +133,12 @@ def kernel_wrappers() -> dict:
     from .chunk_gather.ops import chunk_gather, chunk_gather_train
     from .decode_attention.ops import decode_attention
     from .flash_attention.ops import flash_attention
+    from .fused_adamw.ops import clip_adamw_
     from .ssd_scan.ops import ssd_scan
 
     return {"chunk_gather_train": chunk_gather_train, "chunk_gather": chunk_gather,
             "flash_attention": flash_attention, "decode_attention": decode_attention,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "fused_adamw": clip_adamw_}
 
 
 #: ``CUgraphNodeType`` values (libcuda's graph API) of the nodes a

@@ -24,6 +24,15 @@ Unlike the reference, which returns new trees, ``update`` works in place:
 the moments, the master copy and the parameters are overwritten, so a
 step holds one set of optimizer state on the card, not two.
 
+``update(grads, state, values, step, max_norm=inf) -> norm`` is the train
+step's call: it clips the gradients by their global norm (the norm is
+returned; the default max norm leaves them as they are), then updates,
+leaf by leaf. AdamW with its f32 master on CUDA leaves instead runs both as
+two launches of ``kernels/fused_adamw`` (the same numbers, 30 bytes a
+parameter moved instead of 214), which raise on a card tree they do not
+take; CPU, meta and DTensor leaves, AdamW without a master, Adafactor and
+SGDM take the loop, which is the plain version of those kernels.
+
 ``state_axes(values_axes)`` maps the parameters' ``{path: logical axes}``
 (``Model.param_axes()``) to the logical axes of every state leaf, the
 structure ``init`` builds, as the reference's does (Adafactor's ``vr``
@@ -38,8 +47,9 @@ import math
 import torch
 
 from ..configs.base import RunConfig
+from ..kernels.fused_adamw import ops as fused
 
-__all__ = ["Optimizer", "clip_by_global_norm", "global_norm", "make_optimizer"]
+__all__ = ["Optimizer", "clip_by_global_norm", "clip_scale", "global_norm", "make_optimizer"]
 
 
 def global_norm(tree: dict) -> torch.Tensor:
@@ -50,16 +60,21 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / max(norm, 1e-9)), the factor the clip applies."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: dict, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}, norm
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: callable        # values -> opt_state
-    update: callable      # (grads, opt_state, values, step) -> None (in place)
+    update: callable      # (grads, opt_state, values, step, max_norm=inf) -> norm (in place)
     state_axes: callable  # values_axes -> opt_state's logical axes
 
 
@@ -108,12 +123,20 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
             st["master"] = _master(values)
         return st
 
-    @torch.no_grad()
-    def update(grads: dict, state: dict, values: dict, step) -> None:
-        lr = _lr(step, cfg)
+    def scalars(step):
+        """The step's learning rate and bias corrections, 0-d f32 tensors."""
         t = _f32(step) + 1
-        c1 = 1 - b1**t
-        c2 = 1 - b2**t
+        return _lr(step, cfg), 1 - b1**t, 1 - b2**t
+
+    @torch.no_grad()
+    def update(grads: dict, state: dict, values: dict, step, max_norm=math.inf):
+        lr, c1, c2 = scalars(step)
+        if cfg.master_fp32 and fused.takes(grads, values, state["m"], state["v"],
+                                           state["master"]):
+            return fused.clip_adamw_(grads, state["m"], state["v"], state["master"], values,
+                                     lr=lr, c1=c1, c2=c2, b1=b1, b2=b2, eps=eps,
+                                     weight_decay=cfg.weight_decay, max_norm=max_norm)
+        grads, norm = clip_by_global_norm(grads, max_norm)
         for k, g in grads.items():
             p = values[k]
             m, v = state["m"][k], state["v"][k]
@@ -128,6 +151,7 @@ def _adamw(cfg: RunConfig, b1=0.9, b2=0.95, eps=1e-8):
             if cfg.master_fp32:
                 master.copy_(new)
             p.copy_(new.to(p.dtype))
+        return norm
 
     def state_axes(values_axes: dict) -> dict:
         st = {"m": values_axes, "v": values_axes}
@@ -155,7 +179,8 @@ def _adafactor(cfg: RunConfig, decay=0.8, eps=1e-30, clip_thresh=1.0):
         return st
 
     @torch.no_grad()
-    def update(grads: dict, state: dict, values: dict, step) -> None:
+    def update(grads: dict, state: dict, values: dict, step, max_norm=math.inf):
+        grads, norm = clip_by_global_norm(grads, max_norm)
         lr = _lr(step, cfg)
         beta = 1.0 - (_f32(step) + 1) ** (-decay)
         for k, g in grads.items():
@@ -183,6 +208,7 @@ def _adafactor(cfg: RunConfig, decay=0.8, eps=1e-30, clip_thresh=1.0):
             if cfg.master_fp32:
                 master.copy_(new)
             p.copy_(new.to(p.dtype))
+        return norm
 
     def state_axes(values_axes: dict) -> dict:
         def vaxes(a):
@@ -207,13 +233,15 @@ def _sgdm(cfg: RunConfig, momentum=0.9):
                 "master": _master(values)}
 
     @torch.no_grad()
-    def update(grads: dict, state: dict, values: dict, step) -> None:
+    def update(grads: dict, state: dict, values: dict, step, max_norm=math.inf):
+        grads, norm = clip_by_global_norm(grads, max_norm)
         lr = _lr(step, cfg)
         for k, g in grads.items():
             m, master = state["mom"][k], state["master"][k]
             m.mul_(momentum).add_(g.float())
             master.sub_(lr * m)
             values[k].copy_(master.to(values[k].dtype))
+        return norm
 
     def state_axes(values_axes: dict) -> dict:
         return {"mom": values_axes, "master": values_axes}

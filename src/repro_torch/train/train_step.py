@@ -47,7 +47,7 @@ from ..models.attention import position, quantize_kv
 from ..models.common import flatten_tree
 from ..models.transformer import ATTN_KINDS, Model
 from ..obs import tracer as trace
-from ..optim.optimizers import Optimizer, clip_by_global_norm
+from ..optim.optimizers import Optimizer
 from ..parallel.axes import current_ctx
 from .losses import lm_loss
 
@@ -160,8 +160,7 @@ def _eager_train_step(model: Model, run_cfg: RunConfig, optimizer: Optimizer):
         if run_cfg.grad_allreduce_dtype:
             dt = getattr(torch, run_cfg.grad_allreduce_dtype)
             grads = {p: g.to(dt) for p, g in grads.items()}
-        grads, gnorm = clip_by_global_norm(grads, run_cfg.grad_clip)
-        optimizer.update(grads, state["opt"], params, state["step"])
+        gnorm = optimizer.update(grads, state["opt"], params, state["step"], run_cfg.grad_clip)
         state["step"].add_(1)
         return state, dict(metrics, loss=loss, grad_norm=gnorm)
 
