@@ -274,8 +274,10 @@ training kernels' (the forward with its log-sum-exp and the backward) at
 the four benchmark cells' shapes: the training route's output, log-sum-exp
 and gradients against the plain version in f32 (a mismatch fails), then
 the times, each beside its bound, the plain version under autograd and
-``scaled_dot_product_attention``'s forward and backward (yardstick only),
-and prints them as JSON last.
+``scaled_dot_product_attention``'s forward and backward (yardstick only);
+then the same for multi-head latent attention's (192, 128) kernels at
+kimi-k2-instruct.tokens4k's shape (``check_flash_mla``), and prints them as
+JSON last.
 
     python3 chip_smoke.py --optim
 
@@ -1345,6 +1347,112 @@ def check_flash_train(device) -> dict:
         del q, k, v, g, out, lse, lq, lk, lv, lg
         torch.cuda.empty_cache()
     return rows
+
+
+#: Multi-head latent attention's core at kimi-k2-instruct.tokens4k's shape:
+#: (B, S, H, causal), q and k 192 wide, v 128, the softmax at YaRN's scale;
+#: the plain version's batch (B = 1: the f32 (1, 64, S, S) arrays of its
+#: autograd are 13 GB; its time is then scaled by B).
+FLASH_MLA_SHAPE = ((4, 4096, 64, True), 1)
+MLA_SCALE = 192**-0.5 * (0.1 * math.log(32) + 1) ** 2
+
+
+def check_flash_mla(device) -> dict:
+    """The MLA training kernels (``flash_attention_mla`` on bf16 tensors
+    that require grad: the (192, 128) forward with its log-sum-exp and the
+    backward) at the cell's shape: out, dq, dk and dv on the first
+    ``b_plain`` rows against the plain version in f32 under autograd within
+    FLASH_TRAIN_TOL, the log-sum-exp within FLASH_LSE_TOL (a mismatch
+    fails); then the launches' device time a call in a CUDA graph against
+    the bound (``attention_flops`` at 989 TFLOP/s), the plain version (bf16,
+    forward and autograd backward) and ``scaled_dot_product_attention``
+    forward and backward where it takes values of another width (a
+    yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (_launch, _launch_bwd, attention_flops,
+                                                         flash_attention_mla)
+    from repro_torch.kernels.parity import max_err
+
+    (b, s, h, causal), b_plain = FLASH_MLA_SHAPE
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k = (torch.randn(b, s, h, 192, generator=gen, device=device).bfloat16() for _ in range(2))
+    v = torch.randn(b, s, h, 128, generator=gen, device=device).bfloat16()
+    g = torch.randn(b, s, h, 128, generator=gen, device=device).bfloat16()
+    got = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_mla(*got, scale=MLA_SCALE, causal=causal)
+    out.backward(g)
+    want = [x[:b_plain].float().requires_grad_() for x in (q, k, v)]
+    logits = torch.einsum("bqhd,bkhd->bhqk", want[0], want[1]) * MLA_SCALE
+    keep = torch.ones((s, s), dtype=torch.bool, device=device).tril()
+    probs = torch.softmax(logits.masked_fill(~keep, -torch.inf), dim=-1)
+    ref = torch.einsum("bhqk,bkhd->bqhd", probs, want[2])
+    ref.backward(g[:b_plain].float())
+    errs = {name: max_err(a[:b_plain], r) for name, a, r in
+            zip(("out", "dq", "dk", "dv"), [out] + [x.grad for x in got],
+                [ref] + [x.grad for x in want])}
+    with torch.no_grad():
+        lse_want = torch.logsumexp(logits.masked_fill(~keep, -torch.inf), dim=-1)
+    del got, want, out, ref, probs, logits
+    torch.cuda.empty_cache()
+    o, lse = _launch(q, k, v, causal, 0, 0.0, lse=True, scale=MLA_SCALE)
+    errs["lse"] = float((lse[:b_plain] - lse_want).abs().max())
+    del lse_want
+    torch.cuda.empty_cache()
+    if not all(e <= FLASH_TRAIN_TOL for n, e in errs.items() if n != "lse") or \
+            not errs["lse"] <= FLASH_LSE_TOL:
+        fail(f"flash MLA training at {(b, s, h)}: errors {errs} against the f32 plain version "
+             f"(limits {FLASH_TRAIN_TOL}, log-sum-exp {FLASH_LSE_TOL})")
+
+    fwd = [graph_ms(lambda: _launch(q, k, v, causal, 0, 0.0, lse=True, scale=MLA_SCALE),
+                    calls=3, reps=5) for _ in range(2)]
+    bwd = [graph_ms(lambda: _launch_bwd(q, k, v, o, lse, g, causal, 0, 0.0, MLA_SCALE), calls=2,
+                    reps=5) for _ in range(2)]
+    pq, pk, pv, pg = (x[:b_plain].clone().requires_grad_(x is not g) for x in (q, k, v, g))
+
+    def plain():
+        lg = torch.einsum("bqhd,bkhd->bhqk", pq, pk).float() * MLA_SCALE
+        p = torch.softmax(lg.masked_fill(~keep, -torch.inf), dim=-1).to(pv.dtype)
+        return torch.autograd.grad(torch.einsum("bhqk,bkhd->bqhd", p, pv), (pq, pk, pv), pg)
+
+    plain_ms = graph_ms(plain, calls=1, reps=3) * b / b_plain
+    del pq, pk, pv, pg
+    torch.cuda.empty_cache()
+    lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lg = g.transpose(1, 2).contiguous()
+
+    def library():
+        y = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal, scale=MLA_SCALE)
+        return torch.autograd.grad(y, (lq, lk, lv), lg)
+
+    try:
+        library_ms = graph_ms(library, calls=2, reps=5)
+    except RuntimeError as exc:  # no backend takes values of another width
+        print(f"scaled_dot_product_attention at q/k 192, v 128: {str(exc).splitlines()[0]}")
+        library_ms = None
+    ff = attention_flops((b, s, h, 192), causal, 0, dv=128)
+    fb = attention_flops((b, s, h, 192), causal, 0, dv=128, backward=True)
+    row = {"shape": [b, s, h, 192, 128, causal], "fwd_ms": statistics.median(fwd),
+           "bwd_ms": statistics.median(bwd), "fwd_runs_ms": fwd, "bwd_runs_ms": bwd,
+           "fwd_bound_ms": ff / BF16_FLOP_PER_S * 1e3, "bwd_bound_ms": fb / BF16_FLOP_PER_S * 1e3,
+           "plain_fwd_bwd_ms": plain_ms, "plain_batch": b_plain,
+           "library_fwd_bwd_ms": library_ms, "errors": errs}
+    row["fwd_roofline"] = 100 * row["fwd_bound_ms"] / row["fwd_ms"]
+    row["bwd_roofline"] = 100 * row["bwd_bound_ms"] / row["bwd_ms"]
+    library_txt = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"flash MLA training at kimi-k2-instruct.tokens4k (B, S, H) = ({b}, {s}, {h}), q/k 192, "
+          f"v 128, causal {causal}: forward with lse {fwd[0]:.4f} / {fwd[1]:.4f} ms (bound "
+          f"{row['fwd_bound_ms']:.4f}, {row['fwd_roofline']:.1f}%), backward {bwd[0]:.4f} / "
+          f"{bwd[1]:.4f} ms (bound {row['bwd_bound_ms']:.4f}, {row['bwd_roofline']:.1f}%); plain "
+          f"forward + backward {plain_ms:.3f} ms (B = {b_plain}, times {b // b_plain}); library "
+          f"(scaled_dot_product_attention) forward + backward {library_txt}; against the f32 "
+          f"plain version (B = {b_plain}): out {errs['out']:.3e}, dq {errs['dq']:.3e}, dk "
+          f"{errs['dk']:.3e}, dv {errs['dv']:.3e} (limit {FLASH_TRAIN_TOL}), log-sum-exp "
+          f"{errs['lse']:.2e} (limit {FLASH_LSE_TOL})", flush=True)
+    del q, k, v, g, o, lse, lq, lk, lv, lg
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_decode_main(device) -> dict:
@@ -4227,6 +4335,7 @@ def main(argv=None) -> int:
         phase("3. flash attention: prefill times and the training kernels' rows")
         flash = check_flash_main(device)
         flash["training"] = check_flash_train(device)
+        flash["mla"] = check_flash_mla(device)
         phase(None)
         print(card_line)
         print(json.dumps({"flash_attention": flash}))
@@ -4259,6 +4368,7 @@ def main(argv=None) -> int:
     check_attention_grid(device)
     kernels["flash_attention"] = check_flash_main(device)
     kernels["flash_attention"]["training"] = check_flash_train(device)
+    kernels["flash_attention"]["mla"] = check_flash_mla(device)
     kernels["decode_attention"] = check_decode_main(device)
     check_ssd_grid(device)
     kernels["ssd_scan"] = check_ssd_main(device)

@@ -12,6 +12,7 @@ from . import (  # noqa: E402
     deepseek_moe_16b,
     hubert_xlarge,
     kimi_k2_1t_a32b,
+    kimi_k2_instruct,
     llava_next_34b,
     nemotron_3_nano_30b_a3b,
     phi3_medium_14b,
@@ -35,6 +36,7 @@ ARCHS: dict[str, ModelConfig] = {
         hubert_xlarge,
         xlstm_350m,
         nemotron_3_nano_30b_a3b,
+        kimi_k2_instruct,
     )
 }
 
@@ -83,6 +85,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         kw.update(num_layers=6, num_kv_heads=2, d_ff=96, moe_num_experts=4,
                   moe_router_experts=16, moe_top_k=4, moe_shared_ff=192, ssm_state=16,
                   ssm_heads=8, ssm_head_dim=16, ssm_groups=2, ssm_chunk=16)
+    if cfg.family == "mla_moe":
+        # a dense layer then two moe layers; both latents, both halves of a
+        # head; 2 experts held of 8 routed
+        kw.update(num_layers=3, num_kv_heads=4, head_dim=24, d_ff=32, moe_num_experts=2,
+                  moe_router_experts=8, moe_shared_ff=32, q_lora_rank=48, kv_lora_rank=32,
+                  qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     if cfg.window:
         kw["window"] = 64
     if cfg.frontend != "none":

@@ -14,9 +14,34 @@ __all__ = ["ModelConfig", "ShapeConfig", "RunConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN on the rotary part (arXiv:2309.00071), as DeepSeek-V3's code
+    applies it at every length, under HF's ``rope_scaling`` names:
+    frequencies past the correction range of ``beta_fast`` / ``beta_slow``
+    rotations over ``original_max_position_embeddings`` positions divided
+    by ``factor``, and the softmax scaled by mscale(factor,
+    ``mscale_all_dim``)^2. Unequal ``mscale`` and ``mscale_all_dim`` would
+    also scale the rotary sin and cos, which nothing here does: they
+    raise."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+    def __post_init__(self):
+        if self.mscale != self.mscale_all_dim:
+            raise ValueError(f"YaRN with mscale {self.mscale} != mscale_all_dim "
+                             f"{self.mscale_all_dim} is not supported")
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | hybrid | ssm | encoder | vlm | nemotron_h
+                                 # | mla_moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -42,6 +67,22 @@ class ModelConfig:
     moe_router_experts: int = 0
     moe_routed_scale: float = 1.0  # routed experts' weights multiplied by it
     moe_shared_ff: int = 0       # shared experts' width (0 -> d_ff * moe_num_shared)
+    moe_act: str = "relu2"       # those layers' experts: "relu2" (non-gated, nemotron-h's)
+                                 # or "swiglu" (gate, up and down, DeepSeek-V3's)
+
+    # --- multi-head latent attention (family "mla_moe": DeepSeek-V3's layout,
+    # Kimi-K2): q from a latent of q_lora_rank, k and v from one of
+    # kv_lora_rank, each RMS-normed; a head's q / k are qk_nope_head_dim
+    # columns without rotary positions and qk_rope_head_dim with them (one
+    # rotary key shared by every head), its v v_head_dim. 0: no MLA ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN on the rotary part (YarnScaling), or a dict of HF's
+    # ``rope_scaling`` keys made into one; None leaves plain rotary positions
+    rope_scaling: YarnScaling | None = None
 
     # --- SSM / hybrid ---
     ssm_state: int = 0
@@ -89,6 +130,13 @@ class ModelConfig:
     # --- notes for DESIGN/EXPERIMENTS ---
     source: str = ""
 
+    def __post_init__(self):
+        if isinstance(self.rope_scaling, dict):  # a configuration file's
+            kw = dict(self.rope_scaling)
+            if kw.pop("type", "yarn") != "yarn":
+                raise ValueError(f"rope_scaling {self.rope_scaling} is not YaRN")
+            object.__setattr__(self, "rope_scaling", YarnScaling(**kw))
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
@@ -127,6 +175,12 @@ class ModelConfig:
             total += self._block_params(kind, d, hd)
         return total
 
+    def _mla_params(self, d):
+        h, dn, dr = self.num_heads, self.qk_nope_head_dim, self.qk_rope_head_dim
+        ql, kl = self.q_lora_rank, self.kv_lora_rank
+        return (d * ql + ql + ql * h * (dn + dr) + d * (kl + dr) + kl
+                + kl * h * (dn + self.v_head_dim) + h * self.v_head_dim * d)
+
     def _attn_params(self, d, hd):
         return d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) + (
             self.num_heads * hd
@@ -142,9 +196,15 @@ class ModelConfig:
             shared = self.moe_num_shared * 3 * d * self.d_ff
             router = d * self.moe_num_experts
             return self._attn_params(d, hd) + experts + shared + router + 2 * d
-        if kind == "moe":  # relu² experts: up and down
-            shared = 2 * d * self.moe_shared_width if self.moe_num_shared else 0
-            return d * self.moe_routed + self.moe_num_experts * 2 * d * self.d_ff + shared + d
+        if kind in ("moe", "mla_moe"):  # relu² experts: up and down; SwiGLU: gate too
+            mats = 3 if self.moe_act == "swiglu" else 2
+            shared = mats * d * self.moe_shared_width if self.moe_num_shared else 0
+            experts = d * self.moe_routed + self.moe_num_experts * mats * d * self.d_ff + shared
+            if kind == "moe":
+                return experts + d
+            return self._mla_params(d) + experts + 2 * d
+        if kind == "mla_dense":
+            return self._mla_params(d) + 3 * d * (self.moe_dense_ff or self.d_ff) + 2 * d
         if kind == "attn":
             return self._attn_params(d, hd) + d
         if kind == "mamba2" and self.layer_pattern:
@@ -183,9 +243,9 @@ class ModelConfig:
             return self.param_count()
         total = self.param_count()
         d = self.d_model
-        if self.layer_pattern:
-            expert = 2 * d * self.d_ff
-            layers = self.block_layout().count("moe")
+        if self.layer_pattern or self.family == "mla_moe":
+            expert = (3 if self.moe_act == "swiglu" else 2) * d * self.d_ff
+            layers = sum(k in ("moe", "mla_moe") for k in self.block_layout())
             held = self.moe_num_experts
             active = expert * self.moe_top_k * held / self.moe_routed
             return int(total - layers * (held * expert - active))
@@ -211,6 +271,9 @@ class ModelConfig:
         if self.family == "moe":
             lead = ["attn_dense_moe"] * self.moe_first_dense
             return lead + ["attn_moe"] * (L - self.moe_first_dense)
+        if self.family == "mla_moe":
+            lead = ["mla_dense"] * self.moe_first_dense
+            return lead + ["mla_moe"] * (L - self.moe_first_dense)
         if self.family == "hybrid":
             out = []
             for i in range(L):

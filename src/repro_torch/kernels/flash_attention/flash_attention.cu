@@ -142,6 +142,20 @@
 // warpgroup overlaps, and the dQ sum now ties the two together; taking out
 // any one link (with f32 reduce-adds: the dQ epilogue, the softmax's
 // arithmetic, the dK / dV products) gained 8-20%, none of them leads.
+//
+// Multi-head latent attention's core (DeepSeek-V3, Kimi-K2: q and k 192
+// wide, 128 without rotary positions and 64 with them, v 128, MHA) runs in
+// the flash_mla_* kernels, training only: the same bodies instantiated for a
+// query / key width D = 192 and a value width DV = 128, with the softmax at
+// the caller's scale (YaRN's, not D^-0.5). The forward keeps its log-sum-exp;
+// its Q tile and two ring stages of K (192) and V (128) are 208 KB, so the
+// ring is 2 deep. The backward keeps the (D, D) design: a warpgroup's dK (96
+// registers) and dV (64) stay in registers beside S^T and dP^T (32 each);
+// its dQ part goes through shared memory as three 64-column chunks of int64
+// (32 KB each; the whole 64 x 192 tile, 96 KB, does not fit beside K, V,
+// the Q / dO ring and dS), each summed over the two warpgroups and
+// reduce-added as the (D, D) kernels' tile is. A launch's FLOPs are
+// 2 B H P (D + DV) forward and 2 B H P (3 D + 2 DV) backward.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -592,6 +606,39 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 192, f32) += A (64 x 16, bf16 registers) * B (16 x 192, smem, MN-major):
+// the MLA backward's dK += dS^T Q at the query/key width of 192.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
@@ -601,6 +648,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
     wgmma_rs_n64(o, a, db);
   } else if constexpr (D == 80) {
     wgmma_rs_n80(o, a, db);
+  } else if constexpr (D == 192) {
+    wgmma_rs_n192(o, a, db);
   } else {
     wgmma_rs_n128(o, a, db);
   }
@@ -737,28 +786,47 @@ __device__ __forceinline__ WorkItem work_item(int idx, int ny, int h, int kvh, i
 // finish the last one. The last block to stop taking items sets both
 // counters back to 0 for the next launch. kLse (training) also stores each
 // row's log-sum-exp to lse (B, H, S).
-template <int D, bool kCap, bool kLse>
-__global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel(
-    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int h, int kvh,
-    int s, int causal, int window, float scale_log2, int n_items, int* __restrict__ sched,
-    float cap_in, float cap_out, float* __restrict__ lse) {
+//
+// D is the query / key width and DV the value (and output) width; each
+// stage of the ring holds a K tile of D columns and a V tile of DV
+// (FwdSmem). The prefill and training kernels run D = DV over kStages
+// stages; the MLA kernel D = 192, DV = 128 over 2 (208 KB).
+template <int D, int DV, int STAGES>
+struct FwdSmem {
+  static constexpr int kQBytes = Tiles<pad_dim(D)>::kTileBytes;
+  static constexpr int kVBytes = Tiles<pad_dim(DV)>::kTileBytes;
+  static constexpr int kStageBytes = kQBytes + kVBytes;  // K, then V
+  static constexpr int kBytes = kQBytes + STAGES * kStageBytes + 1024;
+  __device__ static uint32_t k_tile(uint32_t base, int st) {
+    return base + kQBytes + st * kStageBytes;
+  }
+  __device__ static uint32_t v_tile(uint32_t base, int st) { return k_tile(base, st) + kQBytes; }
+};
+
+template <int D, int DV, int STAGES, bool kCap, bool kLse>
+__device__ __forceinline__ void flash_fwd_body(
+    const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+    __nv_bfloat16* __restrict__ o, int h, int kvh, int s, int causal, int window,
+    float scale_log2, int n_items, int* __restrict__ sched, float cap_in, float cap_out,
+    float* __restrict__ lse) {
   constexpr int DP = pad_dim(D);
   using T = Tiles<DP>;
+  using TV = Tiles<pad_dim(DV)>;
+  using L = FwdSmem<D, DV, STAGES>;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages + 2];  // full[], empty[], q full, q empty
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 2];  // full[], empty[], q full, q empty
   __shared__ int item;  // the work item whose Q is loaded (>= n_items: no more)
 
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms: 1024 B
   const uint32_t q_tile = base;
   const uint32_t full_bar = smem_u32(&bars[0]);
-  const uint32_t empty_bar = smem_u32(&bars[kStages]);
-  const uint32_t q_full = smem_u32(&bars[2 * kStages]);
-  const uint32_t q_empty = smem_u32(&bars[2 * kStages + 1]);
+  const uint32_t empty_bar = smem_u32(&bars[STAGES]);
+  const uint32_t q_full = smem_u32(&bars[2 * STAGES]);
+  const uint32_t q_empty = smem_u32(&bars[2 * STAGES + 1]);
   const int ny = (s + kTile - 1) / kTile;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < STAGES; ++st) {
       mbar_init(full_bar + 8 * st, 1);                 // the producer's expect_tx
       mbar_init(empty_bar + 8 * st, kConsumerWarps);  // one arrival per consumer warp
     }
@@ -787,17 +855,26 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
           tma_load(q_tile + box * T::kBoxBytes, &q_map, q_full, box * T::kBoxCols, w.hh, w.q0,
                    w.b);
         for (int i = 0; i < w.n_tiles; ++i, ++it) {
-          const int st = it % kStages;
-          if (it >= kStages) mbar_wait(empty_bar + 8 * st, (it / kStages - 1) & 1);
-          const uint32_t k_tile = base + (1 + 2 * st) * T::kTileBytes;
-          const uint32_t v_tile = k_tile + T::kTileBytes;
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty_bar + 8 * st, (it / STAGES - 1) & 1);
+          const uint32_t k_tile = L::k_tile(base, st);
+          const uint32_t v_tile = L::v_tile(base, st);
           const int k0 = w.k_begin + i * kTile;
-          mbar_expect_tx(full_bar + 8 * st, 2 * T::kTileBytes);
-          for (int box = 0; box < T::kBoxes; ++box) {
-            tma_load(k_tile + box * T::kBoxBytes, &k_map, full_bar + 8 * st,
-                     box * T::kBoxCols, w.hk, k0, w.b);
-            tma_load(v_tile + box * T::kBoxBytes, &v_map, full_bar + 8 * st,
-                     box * T::kBoxCols, w.hk, k0, w.b);
+          mbar_expect_tx(full_bar + 8 * st, L::kStageBytes);
+          if constexpr (D == DV) {
+            for (int box = 0; box < T::kBoxes; ++box) {
+              tma_load(k_tile + box * T::kBoxBytes, &k_map, full_bar + 8 * st,
+                       box * T::kBoxCols, w.hk, k0, w.b);
+              tma_load(v_tile + box * T::kBoxBytes, &v_map, full_bar + 8 * st,
+                       box * T::kBoxCols, w.hk, k0, w.b);
+            }
+          } else {
+            for (int box = 0; box < T::kBoxes; ++box)
+              tma_load(k_tile + box * T::kBoxBytes, &k_map, full_bar + 8 * st,
+                       box * T::kBoxCols, w.hk, k0, w.b);
+            for (int box = 0; box < TV::kBoxes; ++box)
+              tma_load(v_tile + box * TV::kBoxBytes, &v_map, full_bar + 8 * st,
+                       box * TV::kBoxCols, w.hk, k0, w.b);
           }
         }
       }
@@ -826,7 +903,7 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
   float sacc[64];
 #pragma unroll
   for (int j = 0; j < 64; ++j) sacc[j] = 0.f;
-  float oacc[D / 2];
+  float oacc[DV / 2];
   uint32_t pa[8][4];
   float m[2], l[2], corr[2];
   int it = 0;  // tiles consumed so far: the ring position
@@ -846,14 +923,14 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
              (window && k0 <= wg_row + 63 - window);
     };
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
     m[0] = m[1] = kNegInf;  // running max of s * scale_log2
     l[0] = l[1] = 0.f;      // this thread's share of the row sums
 
     // Tile 0: QK^T, then its softmax (the output is still 0).
-    mbar_wait(full_bar + 8 * (it % kStages), (it / kStages) & 1);
+    mbar_wait(full_bar + 8 * (it % STAGES), (it / STAGES) & 1);
     named_sync(my_turn);
-    issue_qk<D>(sacc, q_tile, cw, base + (1 + 2 * (it % kStages)) * T::kTileBytes);
+    issue_qk<D>(sacc, q_tile, cw, L::k_tile(base, it % STAGES));
     named_arrive(their_turn);
     wgmma_wait<0>();
     reg_fence(sacc);
@@ -862,16 +939,16 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
                        window, scale_log2, cap_in, cap_out);
     pack_p(sacc, pa);
     for (int i = 1; i < w.n_tiles; ++i) {
-      const int prev = it % kStages;
+      const int prev = it % STAGES;
       ++it;
-      const int st = it % kStages;
+      const int st = it % STAGES;
       const int k0 = w.k_begin + i * kTile;
-      mbar_wait(full_bar + 8 * st, (it / kStages) & 1);
+      mbar_wait(full_bar + 8 * st, (it / STAGES) & 1);
       // QK^T of tile i, then PV of tile i - 1: tile i's softmax runs on the
       // CUDA cores while the tensor cores run the PV.
       named_sync(my_turn);
-      issue_qk<D>(sacc, q_tile, cw, base + (1 + 2 * st) * T::kTileBytes);
-      issue_pv<D>(oacc, pa, base + (2 + 2 * prev) * T::kTileBytes);
+      issue_qk<D>(sacc, q_tile, cw, L::k_tile(base, st));
+      issue_pv<DV>(oacc, pa, L::v_tile(base, prev));
       named_arrive(their_turn);
       wgmma_wait<1>();  // QK^T of tile i has landed
       reg_fence(sacc);
@@ -883,15 +960,15 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
       reg_fence(oacc);
       if (lane == 0) mbar_arrive(empty_bar + 8 * prev);  // this warp is done with the stage
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) oacc[4 * j + e] *= corr[e >> 1];
       pack_p(sacc, pa);
     }
-    const int last = it % kStages;
+    const int last = it % STAGES;
     ++it;
     named_sync(my_turn);
-    issue_pv<D>(oacc, pa, base + (2 + 2 * last) * T::kTileBytes);
+    issue_pv<DV>(oacc, pa, L::v_tile(base, last));
     named_arrive(their_turn);
     wgmma_wait<0>();
     reg_fence(oacc);
@@ -906,9 +983,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
       if (row < s) {
         const float inv = 1.f / fmaxf(lr, 1e-30f);
         __nv_bfloat16* orow =
-            o + ((static_cast<int64_t>(w.b) * s + row) * h + w.hh) * D + col0;
+            o + ((static_cast<int64_t>(w.b) * s + row) * h + w.hh) * DV + col0;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
               __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
         if constexpr (kLse) {
@@ -921,6 +998,30 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel
     }
   }
   if (cw == 0) named_sync(my_turn);  // warpgroup 1's last hand-over
+}
+
+template <int D, bool kCap, bool kLse>
+__global__ void __launch_bounds__(kWgmmaThreads, 1) flash_attention_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int h, int kvh,
+    int s, int causal, int window, float scale_log2, int n_items, int* __restrict__ sched,
+    float cap_in, float cap_out, float* __restrict__ lse) {
+  flash_fwd_body<D, D, kStages, kCap, kLse>(q_map, k_map, v_map, o, h, kvh, s, causal, window,
+                                            scale_log2, n_items, sched, cap_in, cap_out, lse);
+}
+
+// Multi-head latent attention's core, training only: q / k (B, S, H, 192),
+// v and o (B, S, H, 128), each row's log-sum-exp stored, no cap.
+constexpr int kMlaQk = 192, kMlaV = 128, kMlaStages = 2;
+
+__global__ void __launch_bounds__(kWgmmaThreads, 1) flash_mla_fwd_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o, int h, int s,
+    int causal, float scale_log2, int n_items, int* __restrict__ sched,
+    float* __restrict__ lse) {
+  flash_fwd_body<kMlaQk, kMlaV, kMlaStages, false, true>(q_map, k_map, v_map, o, h, h, s,
+                                                         causal, 0, scale_log2, n_items, sched,
+                                                         0.f, 0.f, lse);
 }
 
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched through
@@ -1015,17 +1116,24 @@ constexpr int kBwdThreads = 2 * kWgThreads;
 // tiles (128 rows), the Q and dO ring (64-row tiles), dS (128 kv rows of
 // 64 q columns, 128-byte rows in 128-byte swizzle: MN-major A of dQ), the
 // block's dQ tile in fragment order, and the ring's lse and delta rows.
-template <int D>
+// K and Q are D wide, V and dO DV. The dQ tile holds kDqCols of its D
+// columns: all of them when D == DV; at MLA's D = 192 a 64-column chunk at a
+// time (the whole 64 x 192 int64 tile, 96 KB, does not fit beside the rest).
+template <int D, int DV>
 struct BwdSmem {
   static constexpr int DP = pad_dim(D);
-  static constexpr int kKvBytes = kBwdKv * DP * 2;
+  static constexpr int DVP = pad_dim(DV);
+  static constexpr int kDqCols = D == DV ? D : 64;
+  static constexpr int kKBytes = kBwdKv * DP * 2;
+  static constexpr int kVBytes = kBwdKv * DVP * 2;
   static constexpr int kQBytes = kBwdQ * DP * 2;
-  static constexpr int kV = kKvBytes;
-  static constexpr int kQ = 2 * kKvBytes;                 // + stage * kQBytes
-  static constexpr int kDo = kQ + kBwdStages * kQBytes;   // + stage * kQBytes
-  static constexpr int kDs = kDo + kBwdStages * kQBytes;
+  static constexpr int kDoBytes = kBwdQ * DVP * 2;
+  static constexpr int kV = kKBytes;
+  static constexpr int kQ = kKBytes + kVBytes;              // + stage * kQBytes
+  static constexpr int kDo = kQ + kBwdStages * kQBytes;    // + stage * kDoBytes
+  static constexpr int kDs = kDo + kBwdStages * kDoBytes;
   static constexpr int kDq = kDs + kBwdKv * 128;
-  static constexpr int kDqBytes = kBwdQ * D * 8;           // the block's 64 x D int64 dQ tile
+  static constexpr int kDqBytes = kBwdQ * kDqCols * 8;     // the block's 64-row int64 dQ tile
   static constexpr int kRows = kDq + kDqBytes;             // + stage * 512: lse2[64], delta[64]
   static constexpr int kBytes = kRows + kBwdStages * 2 * kBwdQ * 4 + 1024;
 };
@@ -1232,8 +1340,9 @@ __device__ __forceinline__ BwdItem bwd_item(int idx, int nk, int h, int kvh, int
 // for a zero row or past S; the exponent capped so the factor and its
 // inverse stay normal), and the row's D int64 of the dQ workspace set to 0
 // (the workspace holds B*H*s_pad*D).
-template <int D>
-__global__ void __launch_bounds__(256) flash_attention_bwd_prep_kernel(
+// o and dout are DV wide, the dQ workspace's rows D.
+template <int D, int DV>
+__device__ __forceinline__ void bwd_prep_body(
     const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
     float* __restrict__ dq_fix, long long* __restrict__ dq_acc, int bh_total, int h, int s,
@@ -1244,11 +1353,11 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_prep_kernel(
   const int row = static_cast<int>(idx % s_pad);
   float l2 = INFINITY, dl = 0.f, mx = 0.f;
   if (row < s) {
-    const int64_t off = ((static_cast<int64_t>(bh / h) * s + row) * h + bh % h) * D;
+    const int64_t off = ((static_cast<int64_t>(bh / h) * s + row) * h + bh % h) * DV;
     const uint4* op = reinterpret_cast<const uint4*>(o + off);
     const uint4* gp = reinterpret_cast<const uint4*>(dout + off);
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DV / 8; ++c) {
       const uint4 a = op[c], g = gp[c];
       const uint32_t aw[4] = {a.x, a.y, a.z, a.w}, gw[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
@@ -1272,29 +1381,47 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_prep_kernel(
   for (int c = 0; c < D / 2; ++c) z[c] = make_longlong2(0, 0);
 }
 
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_prep_kernel(
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
+    float* __restrict__ dq_fix, long long* __restrict__ dq_acc, int bh_total, int h, int s,
+    int s_pad) {
+  bwd_prep_body<D, D>(o, dout, lse, lse2, delta, dq_fix, dq_acc, bh_total, h, s, s_pad);
+}
+
 // One q tile's loads into the next ring stage (the loader's ring position
 // `load_it`), once both warpgroups have released it: Q and dO by TMA, the
 // tile's lse2 and delta rows by bulk copy.
-template <int D>
+template <int D, int DV>
 __device__ __forceinline__ void bwd_load_q(uint32_t base, const CUtensorMap* q_map,
                                            const CUtensorMap* do_map, uint32_t full_bar,
                                            uint32_t empty_bar, const float* lse2,
                                            const float* delta, const BwdItem& w, int h,
                                            int s_pad, int i, int& load_it) {
   using T = Tiles<pad_dim(D)>;
-  using L = BwdSmem<D>;
+  using TV = Tiles<pad_dim(DV)>;
+  using L = BwdSmem<D, DV>;
   const int st = load_it % kBwdStages;
   if (load_it >= kBwdStages) mbar_wait(empty_bar + 8 * st, (load_it / kBwdStages - 1) & 1);
   const int q0 = w.q_begin + i * kBwdQ;
   const uint32_t bar = full_bar + 8 * st;
   const uint32_t q_tile = base + L::kQ + st * L::kQBytes;
-  const uint32_t do_tile = base + L::kDo + st * L::kQBytes;
+  const uint32_t do_tile = base + L::kDo + st * L::kDoBytes;
   const uint32_t rows = base + L::kRows + st * 2 * kBwdQ * 4;
   const int64_t row = (static_cast<int64_t>(w.b) * h + w.hh) * s_pad + q0;
-  mbar_expect_tx(bar, 2 * L::kQBytes + 2 * kBwdQ * 4);
-  for (int box = 0; box < T::kBoxes; ++box) {
-    tma_load(q_tile + box * kBwdQ * T::kSw, q_map, bar, box * T::kBoxCols, w.hh, q0, w.b);
-    tma_load(do_tile + box * kBwdQ * T::kSw, do_map, bar, box * T::kBoxCols, w.hh, q0, w.b);
+  mbar_expect_tx(bar, L::kQBytes + L::kDoBytes + 2 * kBwdQ * 4);
+  if constexpr (D == DV) {
+    for (int box = 0; box < T::kBoxes; ++box) {
+      tma_load(q_tile + box * kBwdQ * T::kSw, q_map, bar, box * T::kBoxCols, w.hh, q0, w.b);
+      tma_load(do_tile + box * kBwdQ * T::kSw, do_map, bar, box * T::kBoxCols, w.hh, q0, w.b);
+    }
+  } else {
+    for (int box = 0; box < T::kBoxes; ++box)
+      tma_load(q_tile + box * kBwdQ * T::kSw, q_map, bar, box * T::kBoxCols, w.hh, q0, w.b);
+    for (int box = 0; box < TV::kBoxes; ++box)
+      tma_load(do_tile + box * kBwdQ * TV::kSw, do_map, bar, box * TV::kBoxCols, w.hh, q0,
+               w.b);
   }
   bulk_load(rows, lse2 + row, kBwdQ * 4, bar);
   bulk_load(rows + kBwdQ * 4, delta + row, kBwdQ * 4, bar);
@@ -1308,20 +1435,25 @@ __device__ __forceinline__ void bwd_load_q(uint32_t base, const CUtensorMap* q_m
 // item from sched[0], waits until both warpgroups are done with the last
 // item's K and V (kv_empty), publishes the item beside its K and V
 // (kv_full) and loads its first q tile; at each q tile it loads the next
-// one into the other ring stage. dk / dv: bf16 (B, S, KVH, D) when kv_f32 is
-// 0, else f32 (B, S, H, D) per query head.
-template <int D, bool kCap>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
-    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
-    const float* __restrict__ lse2, const float* __restrict__ delta,
+// one into the other ring stage. dk / dv: bf16 (B, S, KVH, D / DV) when
+// kv_f32 is 0, else f32 (B, S, H, D / DV) per query head. D is the
+// query / key width and DV the value width: D = DV for every kernel but
+// MLA's, D = 192 and DV = 128, whose dQ part goes through shared memory a
+// 64-column chunk at a time (BwdSmem::kDqCols), each chunk by the
+// protocol below.
+template <int D, int DV, bool kCap>
+__device__ __forceinline__ void flash_bwd_body(
+    const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+    const CUtensorMap& do_map, const float* __restrict__ lse2, const float* __restrict__ delta,
     const float* __restrict__ dq_fix, long long* __restrict__ dq_acc,
     void* __restrict__ dk_out, void* __restrict__ dv_out,
     int kv_f32, int h, int kvh, int s, int s_pad, int causal, int window, float scale_log2,
     float scale, int n_items, int* __restrict__ sched, float cap_in, float cap_out) {
   constexpr int DP = pad_dim(D);
+  constexpr int DVP = pad_dim(DV);
   using T = Tiles<DP>;
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, DV>;
+  constexpr int DC = L::kDqCols;
   extern __shared__ uint8_t smem_raw[];
   // full[], empty[] of the ring; kv full, kv empty
   __shared__ __align__(8) uint64_t bars[2 * kBwdStages + 2];
@@ -1361,7 +1493,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
   const uint32_t dq_tile = base + L::kDq;
   long long* const dq_s = reinterpret_cast<long long*>(base_ptr + L::kDq);
 
-  float dk[D / 2], dv[D / 2];
+  float dk[D / 2], dv[DV / 2];
   int it = 0;       // q tiles consumed so far: the ring position
   int load_it = 0;  // the loader's: q tiles loaded so far
   for (int n = 0;; ++n) {
@@ -1373,15 +1505,25 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
         mbar_arrive(kv_full);  // no load: every thread reads the end
       } else {
         const BwdItem w = bwd_item(idx, nk, h, kvh, s, causal, window);
-        mbar_expect_tx(kv_full, 2 * L::kKvBytes);
-        for (int box = 0; box < T::kBoxes; ++box) {
-          tma_load(k_tile + box * kBwdKv * T::kSw, &k_map, kv_full, box * T::kBoxCols, w.hk,
-                   w.k0, w.b);
-          tma_load(v_tile + box * kBwdKv * T::kSw, &v_map, kv_full, box * T::kBoxCols, w.hk,
-                   w.k0, w.b);
+        mbar_expect_tx(kv_full, L::kKBytes + L::kVBytes);
+        if constexpr (D == DV) {
+          for (int box = 0; box < T::kBoxes; ++box) {
+            tma_load(k_tile + box * kBwdKv * T::kSw, &k_map, kv_full, box * T::kBoxCols, w.hk,
+                     w.k0, w.b);
+            tma_load(v_tile + box * kBwdKv * T::kSw, &v_map, kv_full, box * T::kBoxCols, w.hk,
+                     w.k0, w.b);
+          }
+        } else {
+          using TV = Tiles<DVP>;
+          for (int box = 0; box < T::kBoxes; ++box)
+            tma_load(k_tile + box * kBwdKv * T::kSw, &k_map, kv_full, box * T::kBoxCols, w.hk,
+                     w.k0, w.b);
+          for (int box = 0; box < TV::kBoxes; ++box)
+            tma_load(v_tile + box * kBwdKv * TV::kSw, &v_map, kv_full, box * TV::kBoxCols,
+                     w.hk, w.k0, w.b);
         }
-        bwd_load_q<D>(base, &q_map, &do_map, full_bar, empty_bar, lse2, delta, w, h, s_pad, 0,
-                      load_it);
+        bwd_load_q<D, DV>(base, &q_map, &do_map, full_bar, empty_bar, lse2, delta, w, h, s_pad,
+                          0, load_it);
       }
     }
     mbar_wait(kv_full, n & 1);
@@ -1391,16 +1533,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
     const int kv_lo = w.k0 + 64 * cw;  // this warpgroup's first kv row
     const int kv_r0 = kv_lo + frag_row;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
 
     for (int i = 0; i < w.n_q; ++i, ++it) {
       if (loader && i + 1 < w.n_q)  // the next q tile, into the stage released at i - 1
-        bwd_load_q<D>(base, &q_map, &do_map, full_bar, empty_bar, lse2, delta, w, h, s_pad,
-                      i + 1, load_it);
+        bwd_load_q<D, DV>(base, &q_map, &do_map, full_bar, empty_bar, lse2, delta, w, h, s_pad,
+                          i + 1, load_it);
       const int st = it % kBwdStages;
       const int q0 = w.q_begin + i * kBwdQ;
       const uint32_t q_tile = base + L::kQ + st * L::kQBytes;
-      const uint32_t do_tile = base + L::kDo + st * L::kQBytes;
+      const uint32_t do_tile = base + L::kDo + st * L::kDoBytes;
       const float* const lse_s =
           reinterpret_cast<const float*>(base_ptr + L::kRows + st * 2 * kBwdQ * 4);
       const float* const dl_s = lse_s + kBwdQ;
@@ -1418,9 +1562,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
         wgmma_ss_n64<0, 0>(sacc, kdesc<DP, kBwdKv>(k_tile, 64 * cw, kk),
                            kdesc<DP, kBwdQ>(q_tile, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n64<0, 0>(dpacc, kdesc<DP, kBwdKv>(v_tile, 64 * cw, kk),
-                           kdesc<DP, kBwdQ>(do_tile, 0, kk), kk > 0);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64<0, 0>(dpacc, kdesc<DVP, kBwdKv>(v_tile, 64 * cw, kk),
+                           kdesc<DVP, kBwdQ>(do_tile, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(sacc);
@@ -1467,7 +1611,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
       reg_fence(dk);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(dv, pa[kk], mndesc<DP, kBwdQ>(do_tile, 16 * kk));
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<DV>(dv, pa[kk], mndesc<DVP, kBwdQ>(do_tile, 16 * kk));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_pv<D>(dk, da[kk], mndesc<DP, kBwdQ>(q_tile, 16 * kk));
       wgmma_commit();
@@ -1486,61 +1631,73 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
       fence_proxy_async();
       wg_sync(cw);  // the warpgroup's dS is in shared memory
 
-      // dQ part (64 q rows x D) = dS K over this warpgroup's 64 kv rows,
-      // issued behind dV and dK.
-      float dq[D / 2];
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
-      reg_fence(dq);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_dq<D>(dq, smem_desc(ds_tile + (64 * cw + 16 * kk) * 128, kBwdKv * 128, 1024, 1),
-                    mndesc<DP, kBwdKv>(k_tile, 64 * cw + 16 * kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();  // dV and dK have landed
-      reg_fence(dv);
-      reg_fence(dk);
-      if (lane == 0) mbar_arrive(empty_bar + 8 * st);  // Q, dO, lse and delta are read
       // The fixed-point factors of this thread's two q rows.
       const float* const fix_row =
           dq_fix + (static_cast<int64_t>(w.b) * h + w.hh) * s_pad + q0 + frag_row;
-      const float fix[2] = {__ldg(fix_row), __ldg(fix_row + 8)};
-      wgmma_wait<0>();
-      reg_fence(dq);
+      float fix[2];
+#pragma unroll
+      for (int c = 0; c < D / DC; ++c) {
+        // dQ part (64 q rows x DC columns from c DC) = dS K over this
+        // warpgroup's 64 kv rows; chunk 0 issued behind dV and dK.
+        float dq[DC / 2];
+#pragma unroll
+        for (int j = 0; j < DC / 2; ++j) dq[j] = 0.f;
+        reg_fence(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_dq<DC>(dq, smem_desc(ds_tile + (64 * cw + 16 * kk) * 128, kBwdKv * 128, 1024, 1),
+                       mndesc<DP, kBwdKv>(k_tile + c * (DC / T::kBoxCols) * kBwdKv * T::kSw,
+                                          64 * cw + 16 * kk),
+                       kk > 0);
+        wgmma_commit();
+        if (c == 0) {
+          wgmma_wait<1>();  // dV and dK have landed
+          reg_fence(dv);
+          reg_fence(dk);
+          if (lane == 0) mbar_arrive(empty_bar + 8 * st);  // Q, dO, lse and delta are read
+          fix[0] = __ldg(fix_row);
+          fix[1] = __ldg(fix_row + 8);
+        }
+        wgmma_wait<0>();
+        reg_fence(dq);
 
-      // The two warpgroups' parts (the same 64 q rows, fragment for
-      // fragment) as int64 fixed point in shared memory ([pair][thread][2]):
-      // warpgroup 1 stores its part, warpgroup 0 adds its own, and one bulk
-      // reduce-add takes the tile's sum to the workspace.
-      if (cw == 0 && t == 0) bulk_wait_read();  // the last tile's reduce has read it
-      block_sync(kDqFree);
-      if (cw == 1) {
+        // The two warpgroups' parts (the same 64 q rows, fragment for
+        // fragment) as int64 fixed point in shared memory ([pair][thread][2]):
+        // warpgroup 1 stores its part, warpgroup 0 adds its own, and one bulk
+        // reduce-add takes the chunk's sum to the workspace.
+        if (cw == 0 && t == 0) bulk_wait_read();  // the last reduce has read it
+        block_sync(kDqFree);
+        if (cw == 1) {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+          for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
-          for (int r = 0; r < 2; ++r)
-            *reinterpret_cast<longlong2*>(dq_s + ((2 * j + r) * kWgThreads + t) * 2) =
-                make_longlong2(__float2ll_rn(dq[4 * j + 2 * r] * fix[r]),
-                               __float2ll_rn(dq[4 * j + 2 * r + 1] * fix[r]));
-        block_arrive(kDqPart);
-      } else {
-        block_sync(kDqPart);
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<longlong2*>(dq_s + ((2 * j + r) * kWgThreads + t) * 2) =
+                  make_longlong2(__float2ll_rn(dq[4 * j + 2 * r] * fix[r]),
+                                 __float2ll_rn(dq[4 * j + 2 * r + 1] * fix[r]));
+          block_arrive(kDqPart);
+        } else {
+          block_sync(kDqPart);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+          for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            longlong2* const slot =
-                reinterpret_cast<longlong2*>(dq_s + ((2 * j + r) * kWgThreads + t) * 2);
-            const longlong2 part = *slot;
-            *slot = make_longlong2(part.x + __float2ll_rn(dq[4 * j + 2 * r] * fix[r]),
-                                   part.y + __float2ll_rn(dq[4 * j + 2 * r + 1] * fix[r]));
+            for (int r = 0; r < 2; ++r) {
+              longlong2* const slot =
+                  reinterpret_cast<longlong2*>(dq_s + ((2 * j + r) * kWgThreads + t) * 2);
+              const longlong2 part = *slot;
+              *slot = make_longlong2(part.x + __float2ll_rn(dq[4 * j + 2 * r] * fix[r]),
+                                     part.y + __float2ll_rn(dq[4 * j + 2 * r + 1] * fix[r]));
+            }
+          fence_proxy_async();
+          wg_sync(0);
+          if (t == 0) {
+            // the tile's [pair][thread][2] layout over D: chunk c's pairs are
+            // c DC / 4 onwards
+            const int64_t tile = (static_cast<int64_t>(w.b) * h + w.hh) * nq64 + q0 / kBwdQ;
+            bulk_reduce_add_i64(dq_acc + tile * kBwdQ * D + c * (DC / 4) * kWgThreads * 2,
+                                dq_tile, L::kDqBytes);
           }
-        fence_proxy_async();
-        wg_sync(0);
-        if (t == 0) {
-          const int64_t tile = (static_cast<int64_t>(w.b) * h + w.hh) * nq64 + q0 / kBwdQ;
-          bulk_reduce_add_i64(dq_acc + tile * kBwdQ * D, dq_tile, L::kDqBytes);
         }
       }
     }
@@ -1550,22 +1707,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
     for (int r = 0; r < 2; ++r) {
       const int row = kv_r0 + 8 * r;
       if (row >= s) continue;
+      const int64_t at = kv_f32 ? (static_cast<int64_t>(w.b) * s + row) * h + w.hh
+                                : (static_cast<int64_t>(w.b) * s + row) * kvh + w.hk;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const int col = 8 * j + col0;
+        const int64_t off = at * D + 8 * j + col0;
         const float kx = dk[4 * j + 2 * r] * scale, ky = dk[4 * j + 2 * r + 1] * scale;
-        const float vx = dv[4 * j + 2 * r], vy = dv[4 * j + 2 * r + 1];
-        if (kv_f32) {
-          const int64_t off = ((static_cast<int64_t>(w.b) * s + row) * h + w.hh) * D + col;
+        if (kv_f32)
           *reinterpret_cast<float2*>(static_cast<float*>(dk_out) + off) = make_float2(kx, ky);
-          *reinterpret_cast<float2*>(static_cast<float*>(dv_out) + off) = make_float2(vx, vy);
-        } else {
-          const int64_t off = ((static_cast<int64_t>(w.b) * s + row) * kvh + w.hk) * D + col;
+        else
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dk_out) + off) =
               __floats2bfloat162_rn(kx, ky);
+      }
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        const int64_t off = at * DV + 8 * j + col0;
+        const float vx = dv[4 * j + 2 * r], vy = dv[4 * j + 2 * r + 1];
+        if (kv_f32)
+          *reinterpret_cast<float2*>(static_cast<float*>(dv_out) + off) = make_float2(vx, vy);
+        else
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dv_out) + off) =
               __floats2bfloat162_rn(vx, vy);
-        }
       }
     }
   }
@@ -1576,10 +1738,48 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
   }
 }
 
+template <int D, bool kCap>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_attention_bwd_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    const float* __restrict__ dq_fix, long long* __restrict__ dq_acc,
+    void* __restrict__ dk_out, void* __restrict__ dv_out,
+    int kv_f32, int h, int kvh, int s, int s_pad, int causal, int window, float scale_log2,
+    float scale, int n_items, int* __restrict__ sched, float cap_in, float cap_out) {
+  flash_bwd_body<D, D, kCap>(q_map, k_map, v_map, do_map, lse2, delta, dq_fix, dq_acc, dk_out,
+                             dv_out, kv_f32, h, kvh, s, s_pad, causal, window, scale_log2, scale,
+                             n_items, sched, cap_in, cap_out);
+}
+
+// MLA's backward main kernel: MHA, bf16 dK (B, S, H, 192) and dV (B, S, H,
+// 128), no cap.
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_mla_bwd_kernel(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    const float* __restrict__ dq_fix, long long* __restrict__ dq_acc,
+    __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int h, int s,
+    int s_pad, int causal, float scale_log2, float scale, int n_items,
+    int* __restrict__ sched) {
+  flash_bwd_body<kMlaQk, kMlaV, false>(q_map, k_map, v_map, do_map, lse2, delta, dq_fix, dq_acc,
+                                       dk_out, dv_out, 0, h, h, s, s_pad, causal, 0, scale_log2,
+                                       scale, n_items, sched, 0.f, 0.f);
+}
+
+__global__ void __launch_bounds__(256) flash_mla_bwd_prep_kernel(
+    const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
+    float* __restrict__ dq_fix, long long* __restrict__ dq_acc, int bh_total, int h, int s,
+    int s_pad) {
+  bwd_prep_body<kMlaQk, kMlaV>(o, dout, lse, lse2, delta, dq_fix, dq_acc, bh_total, h, s,
+                               s_pad);
+}
+
 // dq (B, S, H, D) bf16 = scale * the workspace, one thread a pair of a
 // tile's fragment order.
 template <int D>
-__global__ void __launch_bounds__(256) flash_attention_bwd_dq_kernel(
+__device__ __forceinline__ void bwd_dq_body(
     const long long* __restrict__ dq_acc, const float* __restrict__ dq_fix,
     __nv_bfloat16* __restrict__ dq, int bh_total, int h, int s, int s_pad, float scale) {
   constexpr int kPairs = D / 4;
@@ -1601,6 +1801,19 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_dq_kernel(
   *reinterpret_cast<__nv_bfloat162*>(
       dq + ((static_cast<int64_t>(bh / h) * s + row) * h + bh % h) * D + col) =
       __floats2bfloat162_rn(__ll2float_rn(v.x) * unfix, __ll2float_rn(v.y) * unfix);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256) flash_attention_bwd_dq_kernel(
+    const long long* __restrict__ dq_acc, const float* __restrict__ dq_fix,
+    __nv_bfloat16* __restrict__ dq, int bh_total, int h, int s, int s_pad, float scale) {
+  bwd_dq_body<D>(dq_acc, dq_fix, dq, bh_total, h, s, s_pad, scale);
+}
+
+__global__ void __launch_bounds__(256) flash_mla_bwd_dq_kernel(
+    const long long* __restrict__ dq_acc, const float* __restrict__ dq_fix,
+    __nv_bfloat16* __restrict__ dq, int bh_total, int h, int s, int s_pad, float scale) {
+  bwd_dq_body<kMlaQk>(dq_acc, dq_fix, dq, bh_total, h, s, s_pad, scale);
 }
 
 // GQA: dk / dv (B, S, KVH, D) bf16 = the sum over each kv head's g query
@@ -1638,7 +1851,7 @@ template <int D, bool kCap>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, void* dq, void* dk, void* dv, float* ws, void* sched, int b,
                int h, int kvh, int s, int causal, int window, float cap, cudaStream_t stream) {
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, D>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(flash_attention_bwd_kernel<D, kCap>,
@@ -1761,19 +1974,131 @@ bool bad_shape(int b, int h, int kvh, int window, float softcap) {
          !(softcap >= 0.f) || isinf(softcap);
 }
 
+int sm_count(int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return static_cast<int>(err);
+}
+
+// MLA's training forward: q / k (B, S, H, 192), v (B, S, H, 128) -> o (B, S, H,
+// 128) and lse (B, H, S), the softmax at `scale`.
+int launch_mla_fwd(const void* q, const void* k, const void* v, void* o, void* sched, int b,
+                   int h, int s, int causal, float scale, float* lse, cudaStream_t stream) {
+  constexpr int bytes = FwdSmem<kMlaQk, kMlaV, kMlaStages>::kBytes;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_mla_fwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap q_map, k_map, v_map;
+  int err = encode_map<kMlaQk>(&q_map, q, h, s, b);
+  if (err == 0) err = encode_map<kMlaQk>(&k_map, k, h, s, b);
+  if (err == 0) err = encode_map<kMlaV>(&v_map, v, h, s, b);
+  if (err != 0) return err;
+  const int64_t items = static_cast<int64_t>(b) * h * ((s + kTile - 1) / kTile);
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != 0) return err;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_mla_fwd_kernel<<<grid, kWgmmaThreads, bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), h, s, causal, scale * kLog2e,
+      static_cast<int>(items), static_cast<int*>(sched), lse);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// MLA's backward: the pre-pass, the main kernel and the dQ conversion, as
+// launch_bwd's for MHA; ws holds lse2, delta, dq_fix and the dQ tiles.
+int launch_mla_bwd(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, void* dq, void* dk, void* dv, float* ws,
+                   void* sched, int b, int h, int s, int causal, float scale,
+                   cudaStream_t stream) {
+  using L = BwdSmem<kMlaQk, kMlaV>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_mla_bwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           L::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int s_pad = (s + kBwdQ - 1) / kBwdQ * kBwdQ;
+  const int bh = b * h;
+  const int64_t rows = static_cast<int64_t>(bh) * s_pad;
+  float* lse2 = ws;
+  float* delta = ws + rows;
+  float* dq_fix = ws + 2 * rows;
+  long long* dq_acc = reinterpret_cast<long long*>(ws + 3 * rows);  // 16-byte aligned: 64 | rows
+
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int err = encode_map<kMlaQk>(&q_map, q, h, s, b, kBwdQ);
+  if (err == 0) err = encode_map<kMlaV>(&do_map, dout, h, s, b, kBwdQ);
+  if (err == 0) err = encode_map<kMlaQk>(&k_map, k, h, s, b, kBwdKv);
+  if (err == 0) err = encode_map<kMlaV>(&v_map, v, h, s, b, kBwdKv);
+  if (err != 0) return err;
+  const int64_t items = static_cast<int64_t>(bh) * ((s + kBwdKv - 1) / kBwdKv);
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != 0) return err;
+
+  flash_mla_bwd_prep_kernel<<<blocks_of(rows), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, lse2,
+      delta, dq_fix, dq_acc, bh, h, s, s_pad);
+  cudaError_t err2 = cudaGetLastError();
+  if (err2 != cudaSuccess) return static_cast<int>(err2);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_mla_bwd_kernel<<<grid, kBwdThreads, L::kBytes, stream>>>(
+      q_map, k_map, v_map, do_map, lse2, delta, dq_fix, dq_acc,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), h, s, s_pad, causal,
+      scale * kLog2e, scale, static_cast<int>(items), static_cast<int*>(sched));
+  err2 = cudaGetLastError();
+  if (err2 != cudaSuccess) return static_cast<int>(err2);
+  flash_mla_bwd_dq_kernel<<<blocks_of(rows / kBwdQ * (kMlaQk / 4) * kWgThreads), 256, 0,
+                            stream>>>(dq_acc, dq_fix, static_cast<__nv_bfloat16*>(dq), bh, h, s,
+                                      s_pad, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// MLA's (192, 128) instantiation takes bf16 MHA with no window or cap, and
+// always stores the log-sum-exp (it is built for training only).
+bool bad_mla(int dtype, int h, int kvh, int window, float softcap, const void* sched,
+             const void* lse) {
+  return dtype != 1 || h != kvh || window != 0 || softcap != 0.f || sched == nullptr ||
+         lse == nullptr;
+}
+
+float mla_scale(float scale) {
+  return scale > 0.f ? scale : 1.0f / sqrtf(static_cast<float>(kMlaQk));
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/o (B, S, H, D); k/v (B, S, KVH, D).
-// sched: two int32 counters, 0 on entry and left 0 (bf16 only; one stream
-// at a time per device). softcap > 0 caps the scaled logits (0: uncapped).
-// lse: null, or (B, H, S) f32 for each row's log-sum-exp (bf16 only: the
-// training instantiation). Neither kernel's grid caps B*H at 65,535.
+// dtype: 0 = float32, 1 = bfloat16. q (B, S, H, D); k (B, S, KVH, D); v and
+// o (B, S, KVH or H, DV). DV equals D, or (D, DV) is multi-head latent
+// attention's (192, 128): bf16 MHA with no window or cap, lse required.
+// scale: 0 for D^-0.5; another value only at (192, 128). sched: two int32
+// counters, 0 on entry and left 0 (bf16 only; one stream at a time per
+// device). softcap > 0 caps the scaled logits (0: uncapped). lse: null, or
+// (B, H, S) f32 for each row's log-sum-exp (bf16 only: the training
+// instantiation). Neither kernel's grid caps B*H at 65,535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      void* sched, int b, int h, int kvh, int s, int d,
+                                      void* sched, int b, int h, int kvh, int s, int d, int dv,
                                       int causal, int window, int dtype, float softcap,
-                                      void* lse, void* stream) {
+                                      float scale, void* lse, void* stream) {
   if (b == 0 || h == 0 || s == 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(b, h, kvh, window, softcap)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, h, kvh, window, softcap) || !(scale >= 0.f) || isinf(scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d == kMlaQk && dv == kMlaV) {
+    if (bad_mla(dtype, h, kvh, window, softcap, sched, lse))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mla_fwd(q, k, v, o, sched, b, h, s, causal, mla_scale(scale),
+                          static_cast<float*>(lse), static_cast<cudaStream_t>(stream));
+  }
+  if (dv != d || scale != 0.f) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
   if (dtype == 0) {
@@ -1797,19 +2122,30 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 backward: dq (B, S, H, D), dk / dv (B, S, KVH, D) from q, k, v,
-// the forward's out and lse, and dout. ws: f32 workspace of
-// flash_attention_bwd_workspace floats; sched: two int32 counters, 0 on
-// entry and left 0 (not the forward's: either may run while the other's
-// are in use by nothing, but they are kept apart).
+// The bf16 backward: dq (B, S, H, D), dk (B, S, KVH, D), dv (B, S, KVH, DV)
+// from q, k, v, the forward's out and lse, and dout; (D, DV) and scale as
+// the forward's. ws: f32 workspace of flash_attention_bwd_workspace floats;
+// sched: two int32 counters, 0 on entry and left 0 (not the forward's:
+// either may run while the other's are in use by nothing, but they are kept
+// apart).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* dq, void* dk, void* dv, void* ws, void* sched,
-                                          int b, int h, int kvh, int s, int d, int causal,
-                                          int window, float softcap, void* stream) {
+                                          int b, int h, int kvh, int s, int d, int dvw,
+                                          int causal, int window, float softcap, float scale,
+                                          void* stream) {
   if (b == 0 || h == 0 || s == 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(b, h, kvh, window, softcap) || sched == nullptr || ws == nullptr)
+  if (bad_shape(b, h, kvh, window, softcap) || sched == nullptr || ws == nullptr ||
+      !(scale >= 0.f) || isinf(scale))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (d == kMlaQk && dvw == kMlaV) {
+    if (bad_mla(1, h, kvh, window, softcap, sched, lse))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mla_bwd(q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
+                          static_cast<float*>(ws), sched, b, h, s, causal, mla_scale(scale),
+                          static_cast<cudaStream_t>(stream));
+  }
+  if (dvw != d || scale != 0.f) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* w = static_cast<float*>(ws);
@@ -1820,7 +2156,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
                                    causal, window, softcap, st);
 }
 
-// Floats of the backward's workspace.
+// Floats of the backward's workspace (at MLA's (192, 128) too, with d 192).
 extern "C" long long flash_attention_bwd_workspace(int b, int h, int kvh, int s, int d) {
   const long long s_pad = (s + kBwdQ - 1) / kBwdQ * kBwdQ;
   const long long rows = static_cast<long long>(b) * h * s_pad;

@@ -2,7 +2,8 @@
 
 The CPU path of the wrappers and the yardstick the CUDA kernel is held to
 on the card: naive full-matrix attention, f32 softmax, output in
-``q.dtype``. ``softcap > 0`` caps the scaled f32 logits at ``softcap *
+``q.dtype``; the values may be of another width than q and k, and the
+logits' scale another than ``D**-0.5`` (multi-head latent attention's). ``softcap > 0`` caps the scaled f32 logits at ``softcap *
 tanh(s / softcap)`` before the mask, where the reference's attention
 applies ``logit_softcap`` (``repro/models/attention.py:64-67``).
 """
@@ -14,12 +15,14 @@ import torch
 __all__ = ["attention_gqa_ref", "attention_ref"]
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q/k/v: (BH, S, D). Masked logits at -1e30; a fully masked row
-    (possible with a window and no causal mask) gives zeros, like the
-    kernel."""
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None):
+    """q/k: (BH, S, D), v: (BH, S, DV) -> (BH, S, DV). The logits scaled by
+    ``scale`` (``D**-0.5`` when None). Masked logits at -1e30; a fully
+    masked row (possible with a window and no causal mask) gives zeros,
+    like the kernel."""
     s, d = q.shape[1], q.shape[2]
-    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d**-0.5)
+    scale = d**-0.5 if scale is None else scale
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -32,7 +35,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     logits = torch.where(mask[None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask.any(dim=1)[None, :, None], probs, 0.0)
-    return torch.einsum("bqk,bkd->bqd", probs, v.float()).to(q.dtype)
+    return torch.einsum("bqk,bke->bqe", probs, v.float()).to(q.dtype)
 
 
 def attention_gqa_ref(q, k, v, *, causal=True, window=0, softcap=0.0):

@@ -24,26 +24,43 @@ it (``train/train_step.py``). On the plain paths, above
 trains through ``_chunked_attention_vecq``, the others through
 ``_chunked_attention``. A config with ``rope=False`` (nemotron-h,
 whose Mamba-2 layers carry position) rotates neither q nor k.
+
+``mla_block`` is multi-head latent attention (DeepSeek-V3, Kimi-K2): q
+and k/v projected through RMS-normed latents, a head's q and k split into
+a part without rotary positions and a rotary part whose key is one for
+all heads, YaRN frequencies, and a softmax at YaRN's scale. Its core is
+``flash_attention_mla``: the plain version on the CPU, the (192, 128)
+kernels in bf16 on the card, and a refusal for anything else; it has no
+latent cache, so prefill and decode raise.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import HEAD_DIMS as FLASH_HEAD_DIMS
-from ..kernels.flash_attention.ops import flash_attention_gqa
+from ..kernels.flash_attention.ops import flash_attention_gqa, flash_attention_mla
 from ..parallel.axes import per_shard, shard
-from .common import apply_rope, make_rope, scaled_init
+from .common import apply_rope, make_rope, rms_norm, scaled_init
 
 __all__ = [
     "attention_block",
     "decode_attention_block",
     "dequantize_kv",
     "init_attention",
+    "init_mla",
+    "mla_block",
+    "mla_scale",
+    "mla_shapes",
     "position",
     "quantize_kv",
     "slot_validity",
+    "yarn_rope",
 ]
 
 NEG_INF = -1e30
@@ -260,6 +277,106 @@ def attention_block(p, x, cfg, *, positions=None, want_cache=False):
     out = shard(out, *axes)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim_) @ p["wo"]
     return out, kv
+
+
+# ------------------------------------------------- multi-head latent attention
+def mla_shapes(cfg) -> dict:
+    """One MLA layer's parameter shapes: the query's down projection, its
+    latent norm and up projection; the keys' and values' down projection
+    (the latent and the shared rotary key), its latent norm and up
+    projection (per head: k without positions, then v); the output."""
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {"wq_a": (d, ql), "q_norm": (ql,), "wq_b": (ql, h * (dn + dr)),
+            "wkv_a": (d, kl + dr), "kv_norm": (kl,), "wkv_b": (kl, h * (dn + dv)),
+            "wo": (h * dv, d)}
+
+
+def init_mla(gen, cfg, dtype) -> dict:
+    """Draws in ``mla_shapes``' order: projections normal at 1/sqrt(fan_in),
+    the latent norms' gains zero (``rms_norm``'s ``1 + scale``)."""
+    return {name: torch.zeros(shape, dtype=dtype, device=gen.device) if len(shape) == 1
+            else scaled_init(gen, shape, dtype) for name, shape in mla_shapes(cfg).items()}
+
+
+def _yarn_mscale(factor: float, mscale: float) -> float:
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def mla_scale(cfg) -> float:
+    """The softmax scale: (Dqk)^-0.5, times mscale(factor, mscale_all_dim)^2
+    under YaRN (DeepSeek-V3's attention)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    yarn = cfg.rope_scaling
+    if yarn is not None:
+        scale *= _yarn_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
+    return scale
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_freqs(dim: int, base: float, yarn, device: torch.device) -> torch.Tensor:
+    """The rotary part's frequencies, f32, on ``device``: ``base^(-2i/dim)``,
+    and under ``yarn`` (a ``YarnScaling``, or None) past the correction
+    range of its ``beta_fast`` / ``beta_slow`` rotations over its original
+    positions those divided by its factor, a linear ramp between
+    (DeepSeek-V3's ``DeepseekV3YarnRotaryEmbedding``). Made once
+    and outside inference mode, as ``common._rope_freqs``: a CUDA graph's
+    capture cannot copy from host memory."""
+    extra = 1.0 / base ** (np.arange(0, dim, 2, dtype=np.float64) / dim)
+    if yarn is not None:
+        def corr(rot):
+            return (dim * math.log(yarn.original_max_position_embeddings / (rot * 2 * math.pi))
+                    / (2 * math.log(base)))
+
+        low = max(math.floor(corr(yarn.beta_fast)), 0)
+        high = min(math.ceil(corr(yarn.beta_slow)), dim - 1)
+        ramp = np.clip((np.arange(dim // 2) - low) / max(high - low, 1e-3), 0.0, 1.0)
+        extra = extra / yarn.factor * ramp + extra * (1.0 - ramp)
+    with torch.inference_mode(False):
+        return torch.from_numpy(extra.astype(np.float32)).to(device)
+
+
+def yarn_rope(positions: torch.Tensor, cfg) -> tuple:
+    """(sin, cos) of the rotary part at ``positions``, f32 (YaRN's sin / cos
+    mscale is 1: ``YarnScaling`` holds its two mscales equal)."""
+    freqs = _yarn_freqs(cfg.qk_rope_head_dim, float(cfg.rope_theta), cfg.rope_scaling,
+                        positions.device)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def mla_block(p, x, cfg, *, want_cache=False):
+    """Multi-head latent attention over the full sequence, x (B, S, d) ->
+    (B, S, d):
+
+        q = W_qb rms(W_qa x)                 -> per head [q_nope, q_pe]
+        [c, k_pe] = W_kva x;  kv = W_kvb rms(c) -> per head [k_nope, v]
+        q_pe, k_pe rotated (YaRN; k_pe one for all heads)
+        out = W_o softmax(scale [q_nope, q_pe] [k_nope, k_pe]^T) v
+
+    The rotary layout is the half-split one (``apply_rope``), not the
+    interleaved pairs of DeepSeek-V3's code: a fixed permutation of W_qb's
+    and W_kva's rotary columns. Prefill and decode need a cache of the
+    latents, which the port has not: ``want_cache`` raises."""
+    if want_cache:
+        raise NotImplementedError("multi-head latent attention has no latent (c_kv, k_pe) "
+                                  "cache in the port: prefill and decode are not supported")
+    b, s, _ = x.shape
+    h, dn, dr, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    eps = cfg.norm_eps
+    q = (rms_norm(x @ p["wq_a"], p["q_norm"], eps) @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    ckv = x @ p["wkv_a"]
+    c, k_pe = ckv[..., :cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank:]
+    kv = (rms_norm(c, p["kv_norm"], eps) @ p["wkv_b"]).reshape(b, s, h, dn + dv)
+    sin, cos = yarn_rope(torch.arange(s, device=x.device)[None, :], cfg)
+    q_pe = apply_rope(q[..., dn:], sin, cos)
+    k_pe = apply_rope(k_pe[:, :, None, :], sin, cos)
+    q = torch.cat([q[..., :dn], q_pe], dim=-1)
+    k = torch.cat([kv[..., :dn], k_pe.expand(b, s, h, dr)], dim=-1)
+    out = flash_attention_mla(q, k, kv[..., dn:].contiguous(), scale=mla_scale(cfg),
+                              causal=cfg.causal)
+    return out.reshape(b, s, h * dv) @ p["wo"]
 
 
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -18,8 +18,9 @@ parallelism over a mesh's "model" axis (``cfg.moe_impl == "a2a"``).
 
 A Switch-style auxiliary load-balance loss is returned for training.
 
-``moe_share_block`` is the single-mixer MoE layer of a ``layer_pattern``
-model (nemotron-h), which holds a share of the router's experts: the
+``moe_share_block`` is the MoE layer of a ``layer_pattern`` model
+(nemotron-h's relu² experts) and of an ``mla_moe`` one (Kimi-K2's SwiGLU
+experts, ``cfg.moe_act``), which holds a share of the router's experts: the
 router scores all ``cfg.moe_routed`` experts, the layer computes its own
 ``cfg.moe_num_experts`` and adds only their part of the result (plus the
 shared expert), as one rank of an expert-parallel deployment does without
@@ -366,14 +367,19 @@ def recomputing():
 
 
 def moe_share_shapes(cfg) -> dict:
-    """One ``moe`` layer's parameter shapes: the router over every routed
-    expert, the held experts and the shared expert. The layer is
-    nemotron-h's by definition: a sigmoid router, non-gated relu² experts."""
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_num_experts
-    out = {"router": (d, cfg.moe_routed), "wi_up": (e, d, f), "wo": (e, f, d)}
+    """One expert-share layer's parameter shapes: the router over every
+    routed expert, the held experts and the shared expert. A sigmoid
+    router; non-gated relu² experts (up, down: nemotron-h's) or, with
+    ``moe_act="swiglu"``, gated ones (gate, up, down: DeepSeek-V3's)."""
+    d, f, e, sf = cfg.d_model, cfg.d_ff, cfg.moe_num_experts, cfg.moe_shared_width
+    gated = cfg.moe_act == "swiglu"
+    out = {"router": (d, cfg.moe_routed)}
+    if gated:
+        out["wi_gate"] = (e, d, f)
+    out.update(wi_up=(e, d, f), wo=(e, f, d))
     if cfg.moe_num_shared:
-        sf = cfg.moe_shared_width
-        out["shared"] = {"wi_up": (d, sf), "wo": (sf, d)}
+        out["shared"] = {"wi_gate": (d, sf)} if gated else {}
+        out["shared"].update(wi_up=(d, sf), wo=(sf, d))
     return out
 
 
@@ -401,13 +407,18 @@ def route_share(p, x, bias, cfg):
     return top_w / (top_w.sum(-1, keepdim=True) + 1e-20) * cfg.moe_routed_scale, top_e
 
 
-def _relu2(x, up, down, offs=None):
-    """``down(relu(up x)^2)``; with ``offs`` (cumulative row ends) the held
-    experts' grouped products on their sorted rows."""
-    if offs is None:
-        return torch.relu(x @ up).square() @ down
-    h = torch.relu(torch._grouped_mm(x, up, offs=offs)).square()
-    return torch._grouped_mm(h, down, offs=offs)
+def _experts(x, p, offs=None):
+    """``down(relu(up x)^2)``, or ``down(silu(gate x) * up x)`` where ``p``
+    holds a gate; with ``offs`` (cumulative row ends) the held experts'
+    grouped products on their sorted rows."""
+    def mm(a, w):
+        return a @ w if offs is None else torch._grouped_mm(a, w, offs=offs)
+
+    if "wi_gate" in p:
+        h = F.silu(mm(x, p["wi_gate"])) * mm(x, p["wi_up"])
+    else:
+        h = torch.relu(mm(x, p["wi_up"])).square()
+    return mm(h, p["wo"])
 
 
 class _TokenRows(torch.autograd.Function):
@@ -459,7 +470,7 @@ def moe_share_block(p, x, cfg, *, first: int = 0):
 
     # the mask passes no gradient of the rows past the last offset to x
     buf = torch.where(valid, _TokenRows.apply(xt, rows_at, k), 0)
-    y = _relu2(buf, p["wi_up"], p["wo"], offs)
+    y = _experts(buf, p, offs)
 
     # combine: each assignment's row (held rows lie before the last offset;
     # a zero row m where it is not held), k gathers in token order, weighted
@@ -474,5 +485,5 @@ def moe_share_block(p, x, cfg, *, first: int = 0):
     out = out.to(x.dtype)
 
     if cfg.moe_num_shared:
-        out = out + _relu2(xt, p["shared"]["wi_up"], p["shared"]["wo"])
+        out = out + _experts(xt, p["shared"])
     return out.reshape(b, s, d), None

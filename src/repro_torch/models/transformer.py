@@ -24,6 +24,12 @@ The block kinds, each a pre-norm residual block:
   (``expert_rows``, the rows a training step routed to each held expert,
   accumulated on the card: ``device_counters``) as buffers, outside the
   parameter tree;
+- ``mla_dense`` and ``mla_moe`` (family ``mla_moe``: Kimi-K2, DeepSeek-V3's
+  layout): multi-head latent attention (``attention.mla_block``) + the
+  SwiGLU MLP of ``moe_dense_ff`` for the ``moe_first_dense`` leading layers,
+  then + the expert share of ``moe_share_block`` (SwiGLU experts), whose
+  correction bias and rows counter the model holds as for ``moe``. An
+  MLA model has no decode cache: prefill and decode raise;
 - ``shared_attn``: zamba2's *shared* attention+MLP block, one unstacked
   parameter set under ``shared_attn`` applied at every site, whose
   ``segments`` entry is an empty placeholder, the reference's tree;
@@ -81,7 +87,15 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from ..parallel.axes import shard
-from .attention import attention_block, decode_attention_block, init_attention, position
+from .attention import (
+    attention_block,
+    decode_attention_block,
+    init_attention,
+    init_mla,
+    mla_block,
+    mla_shapes,
+    position,
+)
 from .common import flatten_tree, normal_init, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode, mamba2_shapes, mamba2_state_shape
 from .mlp import init_mlp, mlp_block
@@ -110,6 +124,10 @@ from .xlstm import (
 __all__ = ["ATTN_KINDS", "Model", "build_model"]
 
 ATTN_KINDS = ("attn_mlp", "attn_dense_moe", "attn_moe", "shared_attn", "attn")
+#: Multi-head latent attention's kinds, and the kinds that hold an expert
+#: share (a correction bias and a rows counter each).
+MLA_KINDS = ("mla_dense", "mla_moe")
+SHARE_KINDS = ("moe", "mla_moe")
 REMAT_MODES = ("none", "dots", "full")
 #: The recurrent kinds: (full-sequence block, one-token decode, parameter key).
 _RECURRENT = {
@@ -125,7 +143,8 @@ def _dtype(name: str) -> torch.dtype:
 
 # ----------------------------------------------------------------- blocks
 def _ffn_width(kind, cfg) -> int:
-    return (cfg.moe_dense_ff or cfg.d_ff) if kind == "attn_dense_moe" else cfg.d_ff
+    dense = kind in ("attn_dense_moe", "mla_dense")
+    return (cfg.moe_dense_ff or cfg.d_ff) if dense else cfg.d_ff
 
 
 def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
@@ -137,6 +156,14 @@ def _block_shapes(kind: str, cfg: ModelConfig) -> dict:
         return {"ln": (d,), "moe": moe_share_shapes(cfg)}
     if kind == "attn":
         return {"ln": (d,), "attn": attn}
+    if kind in MLA_KINDS:
+        tree = {"ln1": (d,), "ln2": (d,), "attn": mla_shapes(cfg)}
+        if kind == "mla_moe":
+            tree["moe"] = moe_share_shapes(cfg)
+        else:
+            f = _ffn_width(kind, cfg)
+            tree["mlp"] = {"wi_gate": (d, f), "wi_up": (d, f), "wo": (f, d)}
+        return tree
     if kind in ATTN_KINDS:
         tree = {"ln1": (d,), "ln2": (d,), "attn": attn}
         if kind == "attn_moe":
@@ -174,15 +201,26 @@ def _block_axes(kind: str, cfg: ModelConfig) -> dict:
             "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed")}
     if kind == "attn":
         return {"ln": ("embed",), "attn": attn}
+    mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    experts = {"router": ("embed", None), "wi_gate": ("experts", "embed", None),
+               "wi_up": ("experts", "embed", None), "wo": ("experts", None, "embed")}
+    # the leaves an expert share holds (moe_share_shapes), each with its axes
+    share = {k: ({n: mlp[n] for n in v} if k == "shared" else experts[k])
+             for k, v in moe_share_shapes(cfg).items()}
     if kind == "moe":
-        experts = {"router": ("embed", None), "wi_up": ("experts", "embed", None),
-                   "wo": ("experts", None, "embed")}
-        if cfg.moe_num_shared:
-            experts["shared"] = {"wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
-        return {"ln": ("embed",), "moe": experts}
+        return {"ln": ("embed",), "moe": share}
+    if kind in MLA_KINDS:
+        mla = {"wq_a": ("embed", None), "q_norm": (None,), "wq_b": (None, "heads_flat"),
+               "wkv_a": ("embed", None), "kv_norm": (None,), "wkv_b": (None, "heads_flat"),
+               "wo": ("heads_flat", "embed")}
+        tree = {"ln1": ("embed",), "ln2": ("embed",), "attn": mla}
+        if kind == "mla_moe":
+            tree["moe"] = share
+        else:
+            tree["mlp"] = mlp
+        return tree
     if kind in ATTN_KINDS:
         tree = {"ln1": ("embed",), "ln2": ("embed",), "attn": attn}
-        mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
         if kind == "attn_moe":
             tree["moe"] = {"router": ("embed", None), "wi_gate": ("experts", "embed", None),
                            "wi_up": ("experts", "embed", None),
@@ -221,6 +259,12 @@ def _init_block(kind: str, gen, cfg: ModelConfig, dtype) -> dict:
         return {"ln": zeros(), "moe": init_moe_share(gen, cfg, dtype)}
     if kind == "attn":
         return {"ln": zeros(), "attn": init_attention(gen, cfg, dtype)}
+    if kind == "mla_moe":
+        return {"ln1": zeros(), "attn": init_mla(gen, cfg, dtype), "ln2": zeros(),
+                "moe": init_moe_share(gen, cfg, dtype)}
+    if kind == "mla_dense":
+        return {"ln1": zeros(), "attn": init_mla(gen, cfg, dtype), "ln2": zeros(),
+                "mlp": init_mlp(gen, cfg, dtype, d_ff=_ffn_width(kind, cfg))}
     if kind == "attn_moe":
         return {"ln1": zeros(), "attn": init_attention(gen, cfg, dtype), "ln2": zeros(),
                 "moe": init_moe(gen, cfg, dtype)}
@@ -245,6 +289,13 @@ def _block(kind, p, x, cfg, want_cache=False):
         h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln"], eps), cfg,
                                     want_cache=want_cache)
         return x + _residual(h), {"k": k, "v": v}, None
+    if kind in MLA_KINDS:
+        h = mla_block(p["attn"], rms_norm(x, p["ln1"], eps), cfg, want_cache=want_cache)
+        x = x + _residual(h)
+        hn = rms_norm(x, p["ln2"], eps)
+        h = moe_share_block(p["moe"], hn, cfg)[0] if kind == "mla_moe" else mlp_block(
+            p["mlp"], hn)
+        return x + _residual(h), {}, None
     if kind in ATTN_KINDS:
         h, (k, v) = attention_block(p["attn"], rms_norm(x, p["ln1"], eps), cfg,
                                     want_cache=want_cache)
@@ -290,6 +341,9 @@ def _decode_block(kind, p, x, cache, cache_pos, cfg):
     eps = cfg.norm_eps
     if kind == "moe":
         return x + moe_share_block(p["moe"], rms_norm(x, p["ln"], eps), cfg)[0]
+    if kind in MLA_KINDS:
+        raise NotImplementedError("multi-head latent attention has no latent cache in the "
+                                  "port: decode is not supported")
     if kind == "attn":
         return x + decode_attention_block(
             p["attn"], rms_norm(x, p["ln"], eps), cache["k"], cache["v"], cache_pos, cfg,
@@ -316,6 +370,9 @@ def _cache_shapes(kind, cfg, batch, max_len, cdt) -> dict:
     f32 = torch.float32
     if kind == "moe":
         return {}
+    if kind in MLA_KINDS:
+        raise NotImplementedError("multi-head latent attention has no latent (c_kv, k_pe) "
+                                  "cache in the port")
     if kind == "mamba2":
         shp = mamba2_state_shape(cfg, batch)
         return {"ssm": (shp["ssm"], f32), "conv": (shp["conv"], cdt)}
@@ -336,6 +393,9 @@ def _cache_leaf_axes(kind, cfg) -> dict:
     reference's ``_cache_shapes`` axes), the tree of :func:`_cache_shapes`."""
     if kind == "moe":
         return {}
+    if kind in MLA_KINDS:
+        raise NotImplementedError("multi-head latent attention has no latent (c_kv, k_pe) "
+                                  "cache in the port")
     if kind == "mamba2":
         return {"ssm": ("batch", "inner_heads", None, None), "conv": ("batch", None, "inner_flat")}
     if kind == "mlstm":
@@ -445,9 +505,9 @@ class Model(nn.Module):
         self.shared_attn = None
         if "shared_attn" in kinds:
             self.shared_attn = _Segment("shared_attn", None, cfg, dtype, self.device)
-        n_moe = 0  # each moe segment's first row of the buffers below
+        n_moe = 0  # each expert-share segment's first row of the buffers below
         for (kind, count), seg in zip(cfg.segments(), self.segments):
-            if kind == "moe":
+            if kind in SHARE_KINDS:
                 seg.moe_first, n_moe = n_moe, n_moe + count
         if n_moe:
             self.register_buffer("router_bias", torch.zeros(
@@ -529,7 +589,7 @@ class Model(nn.Module):
         """``seg``'s per-layer trees; a ``moe`` segment's with each layer's
         correction bias and rows counter, rows of the model's buffers."""
         layers = seg.layers()
-        if kind == "moe":
+        if kind in SHARE_KINDS:
             for i, lp in enumerate(layers, seg.moe_first):
                 lp["moe"].update(bias=self.router_bias[i], rows=self.expert_rows[i])
         return layers

@@ -46,7 +46,8 @@ nested lists, the span's own counts.
 *Host tallies* are process-wide dicts of counts that code adds to as it
 queues device work (:func:`host_tally`, e.g. ``attn.flash_calls``, the
 flash-attention training launches and their FLOPs that
-``kernels/flash_attention/ops.py`` counts). A ``train.step`` span
+``kernels/flash_attention/ops.py`` counts, and ``attn.mla_calls``, the
+same for multi-head latent attention's (192, 128) kernels). A ``train.step`` span
 (``train/train_step.py``) carries every tally's change over its step in
 its args under the tally's name (:func:`tallies`, :func:`tallies_since`);
 a graph replay carries what its capture queued, as it runs the same nodes.

@@ -265,15 +265,17 @@ COPIES = ["configs/__init__.py", "configs/base.py", "configs/deepseek_7b.py",
 #: its host-clock overlap ratio, the loader's pack counting its
 #: loss-bearing tokens and carrying its epoch, the tracer's device
 #: counters and host tallies, and the configurations' fields, counts and
-#: registry entry for the port's own nemotron-h family. Every other
-#: section stays the reference's, byte for byte.
+#: registry entries for the port's own nemotron-h and mla_moe (Kimi-K2)
+#: families. Every other section stays the reference's, byte for byte.
 CHANGED = {
     "configs/__init__.py": {"from .", "ARCHS", "reduced"},
     "configs/base.py": {f"ModelConfig.{n}" for n in (
         "family", "moe_impl", "moe_router_experts", "moe_routed_scale",
         "moe_shared_ff", "attn_every", "ssm_groups", "ssm_heads", "ssm_gated_norm",
         "layer_pattern", "rope", "d_inner", "moe_routed", "moe_shared_width", "param_count",
-        "_block_params", "active_param_count", "block_layout")},
+        "_block_params", "active_param_count", "block_layout", "moe_act", "q_lora_rank",
+        "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
+        "rope_scaling", "__post_init__", "_mla_params")} | {"YarnScaling"},
     "core/loader.py": {"RedoxLoader.epoch_device", "RedoxLoader._pack"},
     "core/stats.py": {"DeviceStats.__doc__", "DeviceStats.loss_tokens",
                       "DeviceStats.overlap_fraction"},
